@@ -1,0 +1,336 @@
+#!/usr/bin/env python3
+"""Drive flame_tpu_torch on one CUDA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. environment: versions, nvcc, the card's name and power limit; TF32
+     is switched off for matmuls and cuDNN (the geometry needs full fp32);
+  2. build the CUDA kernels from flame_tpu_torch/csrc with nvcc;
+  3. the NLTGV2 smoother kernel against its plain torch version on a
+     Delaunay graph of 4096 seeded points over 640x480 (D=20, 40
+     iterations), including bit-equal dual copies at both edge ends;
+  4. the tile rasterizer kernel against its plain version on that mesh;
+  5. the main path: flame_tpu_torch.Flame at 640x480 with 4096 features
+     on a synthetic textured plane at 5 m, 30 frames, every second one a
+     poseframe; both kernels must run on every frame that makes a mesh,
+     and the dense map must cover >= 50% of the image within 1% median
+     relative error of the true inverse depth.
+The last lines are the kernels' JSON summary, the nvidia-smi line, and
+{"ok": true, "device": {...}}.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+K1_TOL = dict(rtol=2e-4, atol=5e-5)
+K2_ATOL = 1e-5
+
+
+def _cuda_ms(fn, reps):
+    """Mean milliseconds of fn() over reps runs, from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def environment():
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
+    import importlib.util
+    spec = importlib.util.find_spec("triton")
+    triton_v = "absent"
+    if spec is not None:
+        import triton
+        triton_v = triton.__version__
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} triton {triton_v}")
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    out = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print("nvcc:", out.splitlines()[-1])
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device: {torch.cuda.get_device_name(0)} | {smi} | "
+          f"count {torch.cuda.device_count()}")
+    print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+def build():
+    from flame_tpu_torch import _kernels
+    t0 = time.perf_counter()
+    _kernels.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_kernels.BUILD_INFO['seconds']:.2f} s) "
+          f"-> {os.path.relpath(_kernels.BUILD_INFO['library'])}")
+    for line in _kernels.BUILD_INFO["ptxas"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+
+def make_graph(dev, V=4096, E=12288, D=20, W=640, H=480):
+    """Delaunay of V seeded points over W x H as a GraphState, with seeded
+    primal/dual state; also returns the mesh (tris, n_tris)."""
+    from flame_tpu_torch.mesh import delaunay
+    from flame_tpu_torch.optimize import nltgv2, topology
+    rng = np.random.default_rng(SEED)
+    pts = rng.uniform([2, 2], [W - 2, H - 2], (V, 2)).astype(np.float32)
+    tri = delaunay.triangulate(pts)
+    edges = tri.edges.astype(np.int64)  # sorted (lo, hi) == code order
+    n_e = edges.shape[0]
+    d = pts[edges[:, 0]] - pts[edges[:, 1]]
+    ranks = topology.build_edge_ranks(edges, V, E,
+                                      tie=np.sqrt((d * d).sum(1)))
+    edges_full = np.zeros((E, 2), np.int64)
+    edges_full[:n_e] = edges
+    t = lambda a, **kw: torch.as_tensor(a, device=dev, **kw)
+    g = nltgv2.empty(V, E, D, dev)
+    pos = t(pts)
+    topo = topology.from_edges(t(edges_full), n_e, pos, g.edges, g.edge_mask,
+                               g.q1, g.q2, g.q3, E, V, D, ranks=t(ranks))
+    f32 = lambda a: t(a.astype(np.float32))
+    em = np.arange(E) < n_e
+    x = f32(rng.uniform(0.1, 0.3, V))
+    g = g.replace(
+        pos=pos, x=x, x_bar=x.clone(), w1=f32(rng.normal(0, 1e-3, V)),
+        w2=f32(rng.normal(0, 1e-3, V)),
+        data_term=f32(rng.uniform(0.1, 0.3, V)),
+        data_weight=torch.ones(V, device=dev),
+        vtx_mask=torch.ones(V, dtype=torch.bool, device=dev),
+        edges=topo.edges, alpha=topo.alpha, beta=topo.edge_mask.float(),
+        q1=f32(np.where(em, rng.uniform(-0.5, 0.5, E), 0)),
+        q2=f32(np.where(em, rng.uniform(-0.5, 0.5, E), 0)),
+        q3=f32(np.where(em, rng.uniform(-0.5, 0.5, E), 0)),
+        edge_mask=topo.edge_mask, inc_edge=topo.inc_edge,
+        inc_sign=topo.inc_sign, src_slot=topo.src_slot)
+    g = g.replace(w1_bar=g.w1.clone(), w2_bar=g.w2.clone())
+    return g, tri.triangles.astype(np.int64), pts
+
+
+def check_smoother(g, n_iters=40):
+    from flame_tpu_torch.optimize import nltgv2, smoother_kernel
+    p = __import__("flame_tpu_torch").RegularizerParams()
+    tables, state = nltgv2.slot_prologue(g)
+    weight = (p.data_factor * g.data_weight).contiguous()
+    args = (p, tables, g.data_term, weight, g.vtx_mask)
+    out_k = smoother_kernel.iterate(*args, state, n_iters)
+    out_p = nltgv2.iterate_plain(*args, state, n_iters)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(nltgv2.SmoothState._fields, out_k, out_p):
+        torch.testing.assert_close(a, b, **K1_TOL, msg=f"smoother {name}")
+        err = max(err, (a - b).abs().max().item())
+    # Both copies of every live edge's duals must be bit-equal.
+    V, D = g.inc_edge.shape
+    E = g.q1.shape[0]
+    dst = torch.full((E + 1,), V * D, dtype=torch.int64, device=g.x.device)
+    flat = torch.arange(V * D, device=g.x.device)
+    is_dst = g.inc_sign.reshape(-1) < 0
+    dst[torch.where(is_dst, g.inc_edge.reshape(-1), E)] = flat
+    dst = dst[:E]
+    both = (g.src_slot < V * D) & (dst < V * D) & (g.inc_sign.reshape(-1)[
+        torch.clamp(g.src_slot, max=V * D - 1)] > 0)
+    n_pairs = int(both.sum())
+    for q in out_k[6:]:
+        qf = q.reshape(-1)
+        s = qf[g.src_slot[both]]
+        d = qf[dst[both]]
+        if not torch.equal(s, d):
+            raise AssertionError("smoother dual copies differ: "
+                                 f"{int((s != d).sum())} of {n_pairs}")
+    reps = 20
+    k_ms = _cuda_ms(lambda: smoother_kernel.iterate(*args, state, n_iters),
+                    reps)
+    p_ms = _cuda_ms(lambda: nltgv2.iterate_plain(*args, state, n_iters),
+                    reps)
+    print(f"K1 nltgv2_smoother V={V} D={D} E={int(g.edge_mask.sum())} "
+          f"iters={n_iters}: max|kernel-plain| {err:.3g} "
+          f"(rtol {K1_TOL['rtol']}, atol {K1_TOL['atol']}); "
+          f"{n_pairs} dual pairs bit-equal")
+    print(f"K1 time: kernel {1000 * k_ms / n_iters:.2f} us/iter, plain "
+          f"torch {1000 * p_ms / n_iters:.2f} us/iter")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+
+
+def check_raster(g, tris_np, W=640, H=480):
+    from flame_tpu_torch.ops import raster_kernel, rasterize
+    dev = g.x.device
+    rng = np.random.default_rng(SEED + 1)
+    T = tris_np.shape[0]
+    tris = torch.as_tensor(tris_np, device=dev)
+    vals = torch.as_tensor(rng.uniform(0.5, 2.0, g.x.shape[0]),
+                           dtype=torch.float32, device=dev)
+    valid = torch.ones(T, dtype=torch.bool, device=dev)
+    cand = rasterize.tile_candidates(g.pos, tris, vals, valid, H, W,
+                                     max_per_tile=raster_kernel.MAX_PER_TILE)
+    cd = cand.cdata.contiguous()
+    out_k = rasterize.finish(raster_kernel.rasterize_tiles(cd), H, W)
+    out_p = rasterize.finish(rasterize.eval_tiles(cd), H, W)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
+    if not torch.equal(nan_k, nan_p):
+        raise AssertionError(f"raster NaN masks differ at "
+                             f"{int((nan_k != nan_p).sum())} pixels")
+    m = ~nan_k
+    err = (out_k[m] - out_p[m]).abs().max().item()
+    if err > K2_ATOL:
+        raise AssertionError(f"raster max|kernel-plain| {err} > {K2_ATOL}")
+    k_ms = _cuda_ms(lambda: raster_kernel.rasterize_tiles(cd), 50)
+    p_ms = _cuda_ms(lambda: rasterize.eval_tiles(cd), 10)
+    e2e_ms = _cuda_ms(lambda: raster_kernel.rasterize(
+        g.pos, tris, vals, valid, H, W), 20)
+    print(f"K2 raster_tiles {W}x{H} T={T}: max|kernel-plain| {err:.3g} "
+          f"(atol {K2_ATOL}), NaN masks equal, coverage "
+          f"{m.float().mean().item():.4f}; max candidates per tile "
+          f"{int(cand.max_count)} of max_per_tile "
+          f"{raster_kernel.MAX_PER_TILE}")
+    print(f"K2 time: kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms; "
+          f"with setup and binning {e2e_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+
+
+def bench_params():
+    """bench.py's VGA x 4096 configuration with the synchronous overrides
+    and photo_error_num_pfs=0."""
+    from flame_tpu_torch import DetectionParams, Params, SolverParams
+    return Params(
+        feature_capacity=4096, edge_capacity=12288, triangle_capacity=8192,
+        poseframe_capacity=16, min_height=-1e6, max_height=1e6,
+        idepth_init=0.05, min_baseline=0.01, photo_error_num_pfs=0,
+        detection=DetectionParams(win_size=16),
+        solver=SolverParams(max_vertex_degree=20, n_iters_per_frame=40,
+                            async_topology=False, frame_batch=1),
+        do_ba=False)
+
+
+def main_path(smi, n_frames=30):
+    import flame_tpu_torch
+    from flame_tpu_torch import _kernels
+    W, H = 640, 480
+    FX = 525.0
+    PLANE_Z = 5.0
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
+    Kinv = np.linalg.inv(K.astype(np.float64)).astype(np.float32)
+    vv, uu = np.mgrid[0:H, 0:W].astype(np.float64)
+
+    def render(cam_x):  # the bench's textured plane, uint8
+        X = (uu - W / 2) * PLANE_Z / FX + cam_x
+        Y = (vv - H / 2) * PLANE_Z / FX
+        tex = (128 + 60 * np.sin(21.0 * X + 4.5 * Y) + 35 * np.cos(8.7 * X)
+               + 18 * np.sin(11.6 * Y) + 10 * np.sin(4.2 * X))
+        return np.clip(tex, 0, 255).astype(np.uint8)
+
+    frames = [render(0.08 * i) for i in range(n_frames)]
+    fl = flame_tpu_torch.Flame(W, H, K, Kinv, bench_params(),
+                               device=torch.device("cuda"))
+    n_iters = fl.params.solver.n_iters_per_frame
+    _kernels.reset_launches()
+    frame_ms, meshed = [], 0
+    for i in range(n_frames):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        ok = fl.update(i / 30.0, i, (np.array([1.0, 0, 0, 0]),
+                                     np.array([0.08 * i, 0.0, 0.0])),
+                       frames[i], i % 2 == 0)
+        torch.cuda.synchronize()
+        dt = 1000 * (time.perf_counter() - t0)
+        if ok:
+            meshed += 1
+            frame_ms.append(dt)
+            ds = _kernels.LAUNCHES["nltgv2_smoother"] \
+                - before["nltgv2_smoother"]
+            dr = _kernels.LAUNCHES["raster_tiles"] - before["raster_tiles"]
+            if ds != n_iters or dr < 1:
+                raise AssertionError(f"frame {i}: smoother launches {ds} "
+                                     f"(want {n_iters}), raster {dr}")
+    launches = dict(_kernels.LAUNCHES)
+    if meshed < n_frames // 2:
+        raise AssertionError(f"only {meshed} of {n_frames} frames meshed")
+
+    idm = fl.get_inverse_depth_map()
+    cov = float(np.mean(~np.isnan(idm)))
+    truth = 1.0 / PLANE_Z
+    err = float(np.median(np.abs(idm[~np.isnan(idm)] - truth) / truth))
+    print(f"main path 640x480, 4096 features, {n_frames} frames "
+          f"({meshed} meshed): coverage {cov:.4f} (>= 0.5), median "
+          f"relative idepth error {err:.5f} (<= 0.01); features "
+          f"{fl._n_valid}, vertices {fl._n_members}, triangles "
+          f"{fl._n_tris}, edges {fl._n_edges}")
+    if not (cov >= 0.5 and err <= 0.01 and np.isfinite(idm[~np.isnan(idm)])
+            .all()):
+        raise AssertionError("main path output out of bounds")
+    from flame_tpu_torch.ops import raster_kernel, rasterize
+    g, tris = fl._graph, fl._tris
+    tri_mask = (torch.arange(tris.shape[0], device=tris.device)
+                < fl._n_tris) & g.vtx_mask[tris].all(1)
+    cand = rasterize.tile_candidates(g.pos, tris, fl._vtx_idepths, tri_mask,
+                                     H, W)
+    print(f"main path final mesh: max candidates per tile "
+          f"{int(cand.max_count)} of max_per_tile "
+          f"{raster_kernel.MAX_PER_TILE}")
+    dev_ms = fl.stats.device_times_ms()
+    skip = 4  # the first meshed frames include one-time allocations
+    parts = []
+    for name in ("frame_creation", "update_idepths", "triangulate",
+                 "sync_graph", "smoother", "raster"):
+        v = dev_ms.get(name, [])
+        v = v[skip:] if len(v) > skip else v
+        parts.append(f"{name} {np.median(v):.3f}")
+    print(f"main path median ms per stage (CUDA events) on {smi}: "
+          + ", ".join(parts))
+    print(f"main path median frame {np.median(frame_ms[skip:]):.3f} ms "
+          f"(host wall incl. synchronize, frames {skip + 1}-{meshed} of "
+          f"the meshed) on {smi}; launches {launches}")
+    return launches
+
+
+def main():
+    smi = environment()
+    build()
+    g, tris, _ = make_graph(torch.device("cuda"))
+    k1 = check_smoother(g)
+    k2 = check_raster(g, tris)
+    launches = main_path(smi)
+    kernels = [
+        dict(name="nltgv2_smoother", route="cuda",
+             source="flame_tpu_torch/csrc/nltgv2_smoother.cu",
+             replaces="flame_tpu/optimize/pallas_smoother.py:185",
+             launches=launches["nltgv2_smoother"], **k1),
+        dict(name="raster_tiles", route="cuda",
+             source="flame_tpu_torch/csrc/raster.cu",
+             replaces="flame_tpu/ops/pallas_raster.py:161",
+             launches=launches["raster_tiles"], **k2),
+    ]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} never ran on the main path")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""Carry configuration and state from the JAX package into the port.
+
+Takes plain Python/numpy data only (dataclasses.asdict of the JAX Params,
+dicts of numpy arrays of its state containers), so this module imports
+no JAX. The tests use it to feed both packages the same solver state.
+"""
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from flame_tpu_torch import params as params_mod
+from flame_tpu_torch.core.frame import FrameStack
+from flame_tpu_torch.core.pipeline import CurrFeatures, FeatureState
+from flame_tpu_torch.optimize.nltgv2 import GraphState
+
+# Fields of the JAX Params that the port leaves out (TPU-only knobs).
+DROPPED_FIELDS = {"max_topology_staleness", "pallas_reach"}
+
+
+def _build(cls, d: Mapping):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if dataclasses.is_dataclass(f.default_factory() if f.default_factory
+                                    is not dataclasses.MISSING else None):
+            v = _build(type(f.default_factory()), v)
+        kw[f.name] = v
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - known - DROPPED_FIELDS
+    if unknown:
+        raise ValueError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
+    return cls(**kw)
+
+
+def params_from_dict(d: Mapping) -> params_mod.Params:
+    """The port's Params from dataclasses.asdict(jax_params)."""
+    return _build(params_mod.Params, d)
+
+
+def _t(a, device, dtype=None):
+    t = torch.as_tensor(np.array(a), device=device)  # owned copy
+    return t if dtype is None else t.to(dtype)
+
+
+def frame_stack_from_numpy(d: Mapping, device) -> FrameStack:
+    """FrameStack from the JAX stack's arrays (its img_pack table, a TPU
+    sampling workaround, is ignored)."""
+    f32 = torch.float32
+    return FrameStack(
+        frame_id=_t(d["frame_id"], device, torch.int32),
+        q=_t(d["q"], device, f32), t=_t(d["t"], device, f32),
+        img_pad=_t(d["img_pad"], device, f32),
+        gradx=_t(d["gradx"], device, f32), grady=_t(d["grady"], device, f32),
+        idepthmap=_t(d["idepthmap"], device, f32),
+        valid=_t(d["valid"], device, torch.bool))
+
+
+def feature_state_from_numpy(d: Mapping, device) -> FeatureState:
+    f32, i32 = torch.float32, torch.int32
+    return FeatureState(
+        xy=_t(d["xy"], device, f32), pf_slot=_t(d["pf_slot"], device,
+                                                torch.int64),
+        idepth_mu=_t(d["idepth_mu"], device, f32),
+        idepth_var=_t(d["idepth_var"], device, f32),
+        valid=_t(d["valid"], device, torch.bool),
+        num_updates=_t(d["num_updates"], device, i32),
+        num_dropouts=_t(d["num_dropouts"], device, i32),
+        search_status=_t(d["search_status"], device, i32),
+        feat_id=_t(d["feat_id"], device, i32))
+
+
+def curr_features_from_numpy(d: Mapping, device) -> CurrFeatures:
+    f32 = torch.float32
+    return CurrFeatures(xy=_t(d["xy"], device, f32),
+                        idepth=_t(d["idepth"], device, f32),
+                        var=_t(d["var"], device, f32),
+                        valid=_t(d["valid"], device, torch.bool))
+
+
+def graph_state_from_numpy(d: Mapping, device) -> GraphState:
+    """GraphState from the JAX graph's arrays, incidence tables
+    included (int fields become int64, masks bool)."""
+    ints = {"edges", "inc_edge", "src_slot"}
+    bools = {"vtx_mask", "edge_mask"}
+    kw = {}
+    for f in dataclasses.fields(GraphState):
+        a = d.get(f.name)
+        if a is None:
+            raise ValueError(f"GraphState field {f.name} missing")
+        dtype = (torch.int64 if f.name in ints else
+                 torch.bool if f.name in bools else torch.float32)
+        kw[f.name] = _t(a, device, dtype)
+    return GraphState(**kw)

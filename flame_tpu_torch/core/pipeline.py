@@ -1,0 +1,555 @@
+"""Per-frame pipeline steps over fixed-capacity state.
+
+Port of the synchronous single-device parts of flame_tpu/core/pipeline.py
+(reference flame.cc: updateFeatureIDepths :1280-1534, trackFeature
+:1536-1752, projectFeatures :1754-1860, projectGraph :1862-1938,
+syncGraph :1940-2188). Feature slot i is graph vertex slot i. Functions
+are plain torch on whatever device the state lives on; the JAX package's
+vmaps are a leading feature dimension here.
+"""
+
+import contextlib
+from dataclasses import dataclass, replace
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from flame_tpu_torch.core import detection
+from flame_tpu_torch.core import frame as frame_mod
+from flame_tpu_torch.core.frame import Frame, FrameStack
+from flame_tpu_torch.geometry import epipolar, se3
+from flame_tpu_torch.mesh import filters as mesh_filters
+from flame_tpu_torch.ops import raster_kernel
+from flame_tpu_torch.optimize import nltgv2, smoother_kernel
+from flame_tpu_torch.optimize import topology as topo_mod
+from flame_tpu_torch.params import Params
+from flame_tpu_torch.stereo import filter as idfilter
+from flame_tpu_torch.stereo import line_stereo, meas_model
+
+# Failure-type counter indices (reference flame.cc:1301-1305, 1498-1504).
+STAT_UPDATES = 0
+STAT_FAIL_MAX_VAR = 1
+STAT_FAIL_MAX_DROPOUTS = 2
+STAT_FAIL_REF_PATCH = 3
+STAT_FAIL_AMBIGUOUS = 4
+STAT_FAIL_MAX_COST = 5
+N_STATS = 6
+
+# Packed snapshot: [x*32, y*32, flags] u16 per feature (1/32 px, < 2048 px).
+PACK_XY_SCALE = 32.0
+PACK_MEMBER = 1
+PACK_CURR_VALID = 2
+PACK_FEAT_VALID = 4
+
+
+@dataclass
+class FeatureState:
+    """Per-feature filter state [N] (reference FeatureWithIDepth)."""
+
+    xy: torch.Tensor  # (N, 2) position in the anchor poseframe
+    pf_slot: torch.Tensor  # (N,) int64 anchor poseframe slot
+    idepth_mu: torch.Tensor  # (N,)
+    idepth_var: torch.Tensor  # (N,)
+    valid: torch.Tensor  # (N,) bool
+    num_updates: torch.Tensor  # (N,) int32
+    num_dropouts: torch.Tensor  # (N,) int32
+    search_status: torch.Tensor  # (N,) int32 last failure taxonomy
+    feat_id: torch.Tensor  # (N,) int32 globally unique id
+
+    def replace(self, **kw) -> "FeatureState":
+        return replace(self, **kw)
+
+
+@dataclass
+class CurrFeatures:
+    """Features projected into the current frame [N]."""
+
+    xy: torch.Tensor  # (N, 2)
+    idepth: torch.Tensor  # (N,)
+    var: torch.Tensor  # (N,)
+    valid: torch.Tensor  # (N,) bool
+
+
+class TrackObs(NamedTuple):
+    success: torch.Tensor  # (N,) bool
+    u_ref: torch.Tensor  # (N, 2) anchor-frame pixel
+    u_obs: torch.Tensor  # (N, 2) matched pixel in the new frame
+    idepth: torch.Tensor  # (N,)
+    var: torch.Tensor  # (N,)
+
+
+def empty_features(capacity: int, device) -> FeatureState:
+    N = capacity
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return FeatureState(
+        xy=z(N, 2), pf_slot=z(N, dtype=torch.int64), idepth_mu=z(N),
+        idepth_var=z(N), valid=z(N, dtype=torch.bool),
+        num_updates=z(N, dtype=torch.int32),
+        num_dropouts=z(N, dtype=torch.int32),
+        search_status=z(N, dtype=torch.int32),
+        feat_id=torch.full((N,), -1, dtype=torch.int32, device=device))
+
+
+def empty_curr(capacity: int, device) -> CurrFeatures:
+    z = torch.zeros(capacity, dtype=torch.float32, device=device)
+    return CurrFeatures(xy=torch.zeros((capacity, 2), device=device),
+                        idepth=z, var=z.clone(),
+                        valid=torch.zeros(capacity, dtype=torch.bool,
+                                          device=device))
+
+
+def _feature_geos(K, Kinv, stack: FrameStack, feats: FeatureState, q_new,
+                  t_new) -> epipolar.EpiGeo:
+    """Per-feature anchor->new geometries (leading dim N)."""
+    qa = stack.q[feats.pf_slot]
+    ta = stack.t[feats.pf_slot]
+    q_rel, t_rel = se3.mul(se3.inverse((q_new, t_new)), (qa, ta))
+    return epipolar.load(K, Kinv, q_rel, t_rel)
+
+
+def track_project_sync(params: Params, K, Kinv, stack: FrameStack,
+                       feats: FeatureState, fnew: Frame, curr_pf_slot: int):
+    """Track -> measure -> fuse -> project -> graph-membership gate over
+    all feature slots. Returns (feats', curr, member (N,) bool, stats
+    (N_STATS,) int32, obs)."""
+    H, W = fnew.gradx.shape
+    pad = (fnew.img_pad.shape[0] - H) // 2
+    fp = params.fparams
+    border = params.border
+    row_offset = H // 3 if params.detection.do_letterbox else 0
+    n_steps = line_stereo.n_steps_for(fp.epilength_max,
+                                      fp.sparams.sample_dist)
+    q_new, t_new = fnew.q, fnew.t
+    geos = _feature_geos(K, Kinv, stack, feats, q_new, t_new)
+
+    def vr_contains(xy):
+        return ((xy[..., 0] >= border) & (xy[..., 0] < W - border)
+                & (xy[..., 1] >= border + row_offset)
+                & (xy[..., 1] < H - border - row_offset))
+
+    def nz(v):  # v where nonzero-positive, else 1 (safe divisor)
+        return torch.where(v > 0, v, torch.ones_like(v))
+
+    alive = feats.valid
+    mu0 = feats.idepth_mu
+
+    # Baseline gate (flame.cc:1319-1324): skip, not a failure.
+    baseline = torch.linalg.norm(geos.t_ref_to_cmp, dim=-1)
+    do_track = alive & (baseline >= params.min_baseline)
+
+    ok_pred, _, mu_pred, _ = idfilter.predict(
+        geos, fp.process_var_factor, feats.xy, mu0, feats.idepth_var)
+
+    # Rescale factor (flame.cc:1583-1659): an out-of-range warp moves the
+    # feature to the current poseframe and fails the track.
+    rescale = torch.where((mu0 > 0) & (mu_pred > 0), mu_pred / nz(mu0),
+                          torch.ones_like(mu0))
+    bad_rescale = (rescale <= params.rescale_factor_min) | \
+        (rescale >= params.rescale_factor_max)
+
+    q_pf = stack.q[curr_pf_slot]
+    t_pf = stack.t[curr_pf_slot]
+    geo_n2pf = epipolar.load(K, Kinv, *se3.mul(se3.inverse((q_pf, t_pf)),
+                                               (q_new, t_new)))
+    geos_mv = epipolar.compose(geo_n2pf, geos)
+    ok_mv, u_pf, id_pf, _ = idfilter.predict(
+        geos_mv, fp.process_var_factor, feats.xy, mu0, feats.idepth_var)
+    mv_in = vr_contains(u_pf)
+    do_move = do_track & ok_pred & bad_rescale
+    move_ok = do_move & ok_mv & mv_in
+    move_fail = do_move & ~(ok_mv & mv_in)
+
+    nonzero = torch.abs(mu0) > 0
+    ratio_mv = torch.where(
+        nonzero, id_pf / torch.where(nonzero, mu0, torch.ones_like(mu0)),
+        torch.ones_like(mu0))
+    vf4_mv = torch.where(id_pf < 1e-6, torch.ones_like(ratio_mv),
+                         ratio_mv ** 4)
+    new_xy = torch.where(move_ok[:, None], u_pf, feats.xy)
+    new_pf_slot = torch.where(move_ok, curr_pf_slot, feats.pf_slot)
+    new_mu = torch.where(move_ok, id_pf, mu0)
+    new_var = torch.where(move_ok, feats.idepth_var * vf4_mv,
+                          feats.idepth_var)
+
+    # Search region with the pre-update prior (flame.cc:1661-1675).
+    attempt = do_track & ok_pred & ~bad_rescale
+    reg = idfilter.get_search_region(fp, geos, W, H, feats.xy, mu0,
+                                     feats.idepth_var)
+    attempt = attempt & reg.ok & vr_contains(feats.xy)
+
+    off = float(pad)
+    sres = idfilter.search_stacked(
+        fp, geos, rescale, stack.img_pad, feats.pf_slot, fnew.img_pad,
+        feats.xy, feats.xy + off, reg.start + off, reg.end + off, n_steps)
+    flow = sres.u_cmp - off
+    search_ok = attempt & (sres.status == idfilter.SUCCESS)
+
+    ok_meas, mu_meas, var_meas = meas_model.idepth_measurement(
+        params.zparams, geos, fnew.gradx, fnew.grady, feats.xy, flow)
+    ok_fuse, mu_post, var_post = idfilter.update(
+        new_mu, new_var, mu_meas, var_meas, params.outlier_sigma_thresh)
+
+    success = search_ok & ok_meas & ok_fuse
+    attempted = do_track & ok_pred
+    failed = (do_track & ~ok_pred) | (attempted & ~success)
+    if params.do_meas_fusion:
+        mu_succ, var_succ = mu_post, var_post
+    else:
+        mu_succ, var_succ = mu_meas, var_meas
+    out_mu = torch.where(success, mu_succ, new_mu)
+    out_var = torch.where(success, var_succ,
+                          torch.where(failed,
+                                      new_var * fp.process_fail_var_factor,
+                                      new_var))
+    fail_max_var = failed & (out_var > params.idepth_var_max)
+    out_dropouts = torch.where(
+        success, torch.zeros_like(feats.num_dropouts),
+        torch.where(failed, feats.num_dropouts + 1, feats.num_dropouts))
+    fail_max_drop = failed & (out_dropouts > params.max_dropouts)
+    out_valid = alive & ~move_fail & ~fail_max_var & ~fail_max_drop
+    out_updates = torch.where(success, feats.num_updates + 1,
+                              feats.num_updates)
+    out_status = torch.where(attempt, sres.status, feats.search_status)
+
+    # Project into the current frame (flame.cc:1754-1860); moved lanes
+    # are anchored in curr_pf, so they take the single pf->new geometry.
+    geo_pf2new = epipolar.load(K, Kinv, *se3.mul(se3.inverse((q_new, t_new)),
+                                                 (q_pf, t_pf)))
+    geos2 = epipolar.select(move_ok, geos, geo_pf2new)
+    xy_cur, id_cur = epipolar.project_idepth(geos2, new_xy, out_mu)
+    proj_ok = vr_contains(xy_cur) & (id_cur >= 0)
+    ratio_c = torch.where(out_mu > 0, id_cur / nz(out_mu),
+                          torch.ones_like(out_mu))
+    vf4_c = torch.where(id_cur < 1e-6, torch.ones_like(ratio_c),
+                        ratio_c ** 4)
+    final_valid = out_valid & proj_ok
+    feats3 = FeatureState(
+        xy=new_xy, pf_slot=new_pf_slot, idepth_mu=out_mu,
+        idepth_var=out_var, valid=final_valid,
+        num_updates=out_updates.int(), num_dropouts=out_dropouts.int(),
+        search_status=out_status.int(), feat_id=feats.feat_id)
+    curr = CurrFeatures(xy=xy_cur, idepth=id_cur, var=vf4_c * out_var,
+                        valid=final_valid)
+
+    # Graph membership (flame.cc:1956-1980): variance below the graph
+    # threshold and world height within bounds; idepth <= 0 is at
+    # infinity and fails the height gate.
+    qf = stack.q[new_pf_slot]
+    tf = stack.t[new_pf_slot]
+    rx = Kinv[0, 0] * new_xy[:, 0] + Kinv[0, 2]
+    ry = Kinv[1, 1] * new_xy[:, 1] + Kinv[1, 2]
+    ray = torch.stack([rx, ry, torch.ones_like(rx)], dim=-1)
+    depth = torch.where(out_mu > 0, 1.0 / nz(out_mu),
+                        torch.full_like(out_mu, float("inf")))
+    p_world = se3.quat_rotate(qf, ray * depth[:, None]) + tf
+    height_ok = ((-p_world[:, 1] >= params.min_height)
+                 & (-p_world[:, 1] <= params.max_height))
+    member = final_valid & (out_var < params.idepth_var_max_graph) \
+        & height_ok
+    if params.do_grad_check_after_projection:
+        from flame_tpu_torch.ops import interp
+        gx = interp.bilinear(fnew.gradx, xy_cur[:, 0], xy_cur[:, 1])
+        gy = interp.bilinear(fnew.grady, xy_cur[:, 0], xy_cur[:, 1])
+        member = member & (gx * gx + gy * gy
+                           >= params.min_grad_mag * params.min_grad_mag)
+
+    stats = torch.stack([
+        success.sum(), fail_max_var.sum(), fail_max_drop.sum(),
+        (attempt & (sres.status == idfilter.FAIL_REF_PATCH_GRADIENT)).sum(),
+        (attempt & (sres.status == idfilter.FAIL_AMBIGUOUS_MATCH)).sum(),
+        (attempt & (sres.status == idfilter.FAIL_MAX_COST)).sum()]).int()
+    obs = TrackObs(success=success & final_valid, u_ref=new_xy, u_obs=flow,
+                   idepth=out_mu, var=out_var)
+    return feats3, curr, member, stats, obs
+
+
+def insert_detections(params: Params, feats: FeatureState,
+                      det_out: torch.Tensor, pf_slot: int,
+                      seed_map: torch.Tensor, id_base: int) -> FeatureState:
+    """Insert detection winners into free feature slots: the r-th winner
+    takes the r-th free slot (reference flame.cc:737-757). New features
+    seed from seed_map (NaN -> idepth_init); winner r gets id id_base+r."""
+    N = feats.valid.shape[0]
+    C = det_out.shape[0]
+    dev = det_out.device
+    take = det_out[:, 2] > 0
+    xy = det_out[:, :2]
+    free = ~feats.valid
+    frank = torch.cumsum(free.long(), 0) - 1
+    n_free = frank[-1] + 1
+    table = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    table[torch.where(free, frank, N)] = torch.arange(N, device=dev)
+    wrank = torch.cumsum(take.long(), 0) - 1
+    use = take & (wrank < n_free)
+    slot = torch.where(use, table[torch.clamp(wrank, 0, N - 1)], N)
+
+    H, W = seed_map.shape
+    xi = torch.clamp(torch.floor(xy[:, 0] + 0.5).long(), 0, W - 1)
+    yi = torch.clamp(torch.floor(xy[:, 1] + 0.5).long(), 0, H - 1)
+    seed = seed_map[yi, xi]
+    mu = torch.where(torch.isnan(seed),
+                     torch.full_like(seed, params.idepth_init), seed)
+
+    def scat(arr, vals):  # unused rows go to the dropped row N
+        buf = torch.cat([arr, arr[:1]], dim=0)
+        buf[slot] = vals.to(arr.dtype)
+        return buf[:N]
+
+    zc = torch.zeros(C, dtype=torch.int32, device=dev)
+    return FeatureState(
+        xy=scat(feats.xy, xy),
+        pf_slot=scat(feats.pf_slot, torch.full((C,), pf_slot,
+                                               dtype=torch.int64,
+                                               device=dev)),
+        idepth_mu=scat(feats.idepth_mu, mu),
+        idepth_var=scat(feats.idepth_var,
+                        torch.full((C,), params.idepth_var_init,
+                                   device=dev)),
+        valid=scat(feats.valid, torch.ones(C, dtype=torch.bool,
+                                           device=dev)),
+        num_updates=scat(feats.num_updates, zc),
+        num_dropouts=scat(feats.num_dropouts, zc),
+        search_status=scat(feats.search_status, zc),
+        feat_id=scat(feats.feat_id, id_base + torch.arange(
+            C, dtype=torch.int32, device=dev)))
+
+
+def _detect(params: Params, K, Kinv, stack: FrameStack, pf_slot: int,
+            cmp_q, cmp_t, curr_xy, curr_valid) -> torch.Tensor:
+    H = stack.gradx.shape[1]
+    row_offset = H // 3 if params.detection.do_letterbox else 0
+    geo = epipolar.load_relative(K, Kinv, (stack.q[pf_slot],
+                                           stack.t[pf_slot]),
+                                 (cmp_q, cmp_t))
+    return detection.detect_packed(
+        geo, stack.gradx[pf_slot], stack.grady[pf_slot], curr_xy,
+        curr_valid, params.detection.min_grad_mag,
+        params.detection.win_size, params.border, row_offset)
+
+
+def _detect_and_insert(params: Params, K, Kinv, stack: FrameStack,
+                       curr_pf_slot: int, feats3: FeatureState,
+                       curr: CurrFeatures, prev_q, prev_t, id_base: int,
+                       seed_map) -> FeatureState:
+    """Poseframe detection against the previous frame + insertion.
+    Comparison-poseframe scoring (photo_error_num_pfs > 0) is not
+    ported."""
+    if params.photo_error_num_pfs > 0:
+        raise NotImplementedError(
+            "photo_error_num_pfs > 0 (core/keyframe.py scoring) is not "
+            "ported; set photo_error_num_pfs=0")
+    det_out = _detect(params, K, Kinv, stack, curr_pf_slot, prev_q, prev_t,
+                      curr.xy, curr.valid)
+    return insert_detections(params, feats3, det_out, curr_pf_slot,
+                             seed_map, id_base)
+
+
+def pack_track_outputs(feats: FeatureState, curr: CurrFeatures,
+                       member) -> torch.Tensor:
+    """The (N, 3) per-feature [x*32, y*32, flags] snapshot the host
+    triangulates (as uint16 values, held in int32: torch has no uint16
+    arithmetic)."""
+    def fx(v):
+        return torch.clamp(v * PACK_XY_SCALE + 0.5, 0, 65535).int()
+    flags = (member.int() * PACK_MEMBER
+             | curr.valid.int() * PACK_CURR_VALID
+             | feats.valid.int() * PACK_FEAT_VALID)
+    return torch.stack([fx(curr.xy[:, 0]), fx(curr.xy[:, 1]), flags], dim=1)
+
+
+def track_step(params: Params, K, Kinv, stack: FrameStack,
+               feats: FeatureState, fnew: Frame, curr_pf_slot: int,
+               prev_q, prev_t, do_detect: bool, id_base: int, seed_map):
+    """track_project_sync + (poseframe) detection + packing."""
+    feats3, curr, member, stats, obs = track_project_sync(
+        params, K, Kinv, stack, feats, fnew, curr_pf_slot)
+    if do_detect:
+        feats3 = _detect_and_insert(params, K, Kinv, stack, curr_pf_slot,
+                                    feats3, curr, prev_q, prev_t, id_base,
+                                    seed_map)
+    return (feats3, curr, member, stats, obs,
+            pack_track_outputs(feats3, curr, member))
+
+
+def frame_track_step(params: Params, K, Kinv, stack: FrameStack,
+                     feats: FeatureState, img, frame_id: int, q, t,
+                     curr_pf_slot: int, prev_q, prev_t, id_base: int,
+                     seed_map, do_detect: bool, do_insert: bool):
+    """Steady-state frame: creation, optional poseframe insertion (in
+    place) and track_step. Returns (fnew, feats', curr, member, stats,
+    obs, packed)."""
+    fnew = frame_mod.create(frame_id, q, t, img, params.pad)
+    if do_insert:
+        frame_mod.insert(stack, curr_pf_slot, fnew)
+    return (fnew,) + track_step(params, K, Kinv, stack, feats, fnew,
+                                curr_pf_slot, prev_q, prev_t, do_detect,
+                                id_base, seed_map)
+
+
+def bootstrap_detect(params: Params, K, Kinv, stack: FrameStack,
+                     feats: FeatureState, prev_q, prev_t, pf_slot: int,
+                     seed_map, id_base: int, curr_xy, curr_valid):
+    """First-poseframe detection + insertion (reference flame.cc:174-242)."""
+    det_out = _detect(params, K, Kinv, stack, pf_slot, prev_q, prev_t,
+                      curr_xy, curr_valid)
+    feats2 = insert_detections(params, feats, det_out, pf_slot, seed_map,
+                               id_base)
+    return feats2, feats2.valid
+
+
+def _graph_sync_inner(params: Params, graph: nltgv2.GraphState,
+                      prev_in_graph, member, curr: CurrFeatures,
+                      geo_prev_to_new: epipolar.EpiGeo, graph_scale,
+                      topo: topo_mod.Topology, prev_idepthmap=None):
+    """Synchronize the solver graph with the tracked features (reference
+    projectGraph flame.cc:1862-1938 + syncGraph :1940-2163)."""
+    zero = torch.zeros_like(graph.x)
+    _, id_new = epipolar.project_idepth(geo_prev_to_new, graph.pos,
+                                        graph.x * graph_scale)
+    x_surv = torch.where(prev_in_graph, id_new / graph_scale, graph.x)
+    new_member = member & ~prev_in_graph
+    data_term = curr.idepth / graph_scale
+    if params.adaptive_data_weights:
+        w = 1.0 / torch.clamp(curr.var, min=1e-12)
+    else:
+        w = torch.ones_like(curr.var)
+    weight = torch.where(member, w, zero)
+    if params.rescale_data:
+        weight = weight * graph_scale
+
+    if params.init_with_prediction and prev_idepthmap is not None:
+        # New vertices start from the previous dense map; where it is NaN,
+        # from the mean of their surviving neighbours, then the data term
+        # (reference flame.cc:2132-2158).
+        H, W = prev_idepthmap.shape
+        xi = torch.clamp(torch.floor(curr.xy[:, 0] + 0.5).long(), 0, W - 1)
+        yi = torch.clamp(torch.floor(curr.xy[:, 1] + 0.5).long(), 0, H - 1)
+        pred = prev_idepthmap[yi, xi] / graph_scale
+        lo = topo.edges[:, 0]
+        hi = topo.edges[:, 1]
+        good = prev_in_graph & member
+        w_lo = (topo.edge_mask & good[hi]).float()
+        w_hi = (topo.edge_mask & good[lo]).float()
+        num = zero.clone().index_add_(0, lo, w_lo * x_surv[hi]) \
+            .index_add_(0, hi, w_hi * x_surv[lo])
+        den = zero.clone().index_add_(0, lo, w_lo).index_add_(0, hi, w_hi)
+        fallback = torch.where(den > 0, num / torch.clamp(den, min=1.0),
+                               data_term)
+        init_x = torch.where(torch.isnan(pred), fallback, pred)
+    else:
+        init_x = data_term
+
+    x = torch.where(new_member, init_x, x_surv)
+    if params.check_sticky_obstacles:
+        x = torch.where(member & (x - data_term > 0.25), data_term, x)
+
+    def keep(v, fresh):
+        return torch.where(member, torch.where(new_member, fresh, v), zero)
+
+    return graph.replace(
+        pos=torch.where(member[:, None], curr.xy, graph.pos),
+        x=torch.where(member, x, zero),
+        w1=keep(graph.w1, zero), w2=keep(graph.w2, zero),
+        x_bar=keep(graph.x_bar, x),
+        w1_bar=keep(graph.w1_bar, zero), w2_bar=keep(graph.w2_bar, zero),
+        data_term=torch.where(member, data_term, zero),
+        data_weight=weight, vtx_mask=member, edges=topo.edges,
+        alpha=topo.alpha, beta=topo.edge_mask.float(),
+        q1=topo.q1, q2=topo.q2, q3=topo.q3, edge_mask=topo.edge_mask,
+        inc_edge=topo.inc_edge, inc_sign=topo.inc_sign,
+        src_slot=topo.src_slot)
+
+
+def _no_timer(name):
+    return contextlib.nullcontext()
+
+
+def _post_delaunay_inner(params: Params, K, Kinv, graph: nltgv2.GraphState,
+                         member, curr: CurrFeatures, pose_prev, pose_new,
+                         graph_scale, width: int, height: int,
+                         prev_idepthmap=None, tris=None, n_tris: int = 0,
+                         edges=None, n_edges: int = 0, edge_ranks=None,
+                         timed=None):
+    """Everything between host Delaunay and the next frame: prev->new
+    geometry, topology with dual carry, graph sync, the smoother, mesh
+    outputs and coverage. tris (T, 3), edges (E, 2) and edge_ranks (E, 2)
+    are padded to capacity; n_tris/n_edges count the real rows.
+    timed: optional context-manager factory, called with "smoother" and
+    "raster". Returns (graph', vtx_idepths, normals, tri_validity,
+    idepthmap, graph_scale, coverage)."""
+    timed = timed or _no_timer
+    geo_prev_to_new = epipolar.load_relative(K, Kinv, pose_prev, pose_new)
+    V = graph.x.shape[0]
+    E = graph.q1.shape[0]
+    D = graph.inc_edge.shape[1]
+    topo = topo_mod.from_edges(edges, n_edges, curr.xy, graph.edges,
+                               graph.edge_mask, graph.q1, graph.q2, graph.q3,
+                               E, V, D, ranks=edge_ranks)
+    edge_ok = topo.edge_mask & member[topo.edges[:, 0]] \
+        & member[topo.edges[:, 1]]
+
+    def mask(v):
+        return torch.where(edge_ok, v, torch.zeros_like(v))
+    topo = topo._replace(edge_mask=edge_ok, alpha=mask(topo.alpha),
+                         q1=mask(topo.q1), q2=mask(topo.q2),
+                         q3=mask(topo.q3))
+    graph = _graph_sync_inner(params, graph, graph.vtx_mask, member, curr,
+                              geo_prev_to_new, graph_scale, topo,
+                              prev_idepthmap)
+
+    if params.rescale_data:
+        # Renormalize so x stays O(1) (reference flame.cc:328-351).
+        cnt = torch.clamp(member.float().sum(), min=1.0)
+        new_scale = torch.where(member, graph.data_term,
+                                torch.zeros_like(graph.x)).sum() \
+            * graph_scale / cnt
+        new_scale = torch.where(new_scale > 1e-8, new_scale,
+                                torch.as_tensor(graph_scale,
+                                                device=new_scale.device))
+        ratio = graph_scale / new_scale
+        graph = graph.replace(x=graph.x * ratio, x_bar=graph.x_bar * ratio,
+                              data_term=graph.data_term * ratio)
+        graph_scale = new_scale
+
+    if params.do_nltgv2:
+        with timed("smoother"):
+            graph = smoother_kernel.smooth(params.rparams, graph,
+                                           params.solver.n_iters_per_frame)
+    else:
+        graph = graph.replace(x=graph.data_term)
+
+    tris = tris.long()
+    tri_mask = (torch.arange(tris.shape[0], device=tris.device) < n_tris) \
+        & torch.all(member[tris], dim=1)
+    outs = mesh_outputs(params, K, Kinv, width, height, graph, tris,
+                        tri_mask, graph_scale, timed)
+    coverage = (~torch.isnan(outs[-1])).float().mean()
+    return (graph,) + outs + (torch.as_tensor(graph_scale,
+                                              dtype=torch.float32),
+                              coverage)
+
+
+def mesh_outputs(params: Params, K, Kinv, width: int, height: int, graph,
+                 tris, tri_mask, graph_scale, timed=None):
+    """Vertex idepths, normals, triangle filters and the dense map
+    (reference flame.cc:353-415)."""
+    timed = timed or _no_timer
+    vtx_idepths = torch.where(graph.vtx_mask, graph.x * graph_scale,
+                              torch.zeros_like(graph.x))
+    geom = mesh_filters.corner_geometry(Kinv, graph.pos, vtx_idepths, tris)
+    normals = mesh_filters.vertex_normals(geom, tris, tri_mask,
+                                          graph.x.shape[0])
+    tri_validity = mesh_filters.apply_filters(params.tri_filter, width, geom,
+                                              tri_mask)
+    with timed("raster"):
+        idepthmap = raster_kernel.rasterize(graph.pos, tris, vtx_idepths,
+                                            tri_mask, height, width)
+    return vtx_idepths, normals, tri_validity, idepthmap
+
+
+def as_numpy_packed(packed: torch.Tensor) -> np.ndarray:
+    """The one device->host copy per frame: the packed snapshot as u16."""
+    return packed.cpu().numpy().astype(np.uint16)

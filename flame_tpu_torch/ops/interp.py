@@ -1,0 +1,45 @@
+"""Bilinear sampling by 4-corner gathers.
+
+Port of flame_tpu/ops/interp.py without its packed-corner tables (a TPU
+gather workaround): each sample gathers its four corners directly. The
+value at integer (x0, y0) is img[y0, x0]; positions are clamped to the
+interior [0, W-1.001] x [0, H-1.001] so masked lanes stay total.
+"""
+
+import torch
+
+
+def _sample(flat: torch.Tensor, W: int, base: torch.Tensor,
+            x: torch.Tensor, y: torch.Tensor, x0: torch.Tensor,
+            y0: torch.Tensor) -> torch.Tensor:
+    dx = x - x0
+    dy = y - y0
+    idx = base + y0.long() * W + x0.long()
+    v00 = flat[idx]
+    v01 = flat[idx + 1]
+    v10 = flat[idx + W]
+    v11 = flat[idx + W + 1]
+    return (v00 * ((1 - dx) * (1 - dy)) + v01 * (dx * (1 - dy))
+            + v10 * ((1 - dx) * dy) + v11 * (dx * dy))
+
+
+def bilinear(img: torch.Tensor, x: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+    """Sample img (H, W) at float positions (x, y) of any batch shape."""
+    H, W = img.shape
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    return _sample(img.reshape(-1).float(), W, 0, x, y, torch.floor(x),
+                   torch.floor(y))
+
+
+def bilinear_stack(imgs: torch.Tensor, frame_idx: torch.Tensor,
+                   x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sample a stack (F, H, W), image frame_idx per sample."""
+    F, H, W = imgs.shape
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    base = torch.clamp(frame_idx, 0, F - 1).long() * (H * W)
+    return _sample(imgs.reshape(-1).float(), W, base, x, y, torch.floor(x),
+                   torch.floor(y))
+

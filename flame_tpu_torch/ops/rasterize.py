@@ -1,0 +1,173 @@
+"""Barycentric mesh rasterization into dense value maps.
+
+Port of flame_tpu/ops/rasterize.py and of the setup and binning around the
+TPU tile kernel (ops/pallas_raster.py). For each (pixel, triangle) pair
+the three edge functions are evaluated; a pixel is inside when all three
+are >= 0, and the interpolated values are max-combined over triangles.
+Background is NaN (reference flame.cc:412).
+
+Vertex coordinates are truncated to integers first (the reference
+converts to cv::Point, image_utils.cc:383-391). The edge coefficients are
+then integers, so the inside test is exact in float32 for images under
+2048 px.
+
+  * rasterize_bruteforce: every triangle against every pixel.
+  * tile_candidates + eval_tiles: the tiled form. Triangles are binned to
+    32x128 tiles by bounding box; each tile keeps the max_per_tile
+    highest-index overlapping triangles (overflow is dropped, and
+    tile_candidates reports the largest count). eval_tiles is the plain
+    version of the CUDA tile kernel (ops/raster_kernel.py).
+"""
+
+from typing import NamedTuple
+
+import torch
+
+TILE_W = 128
+NEG = -3.0e38  # finite -inf stand-in, as in the TPU kernel
+
+
+def _tri_setup(verts, tris, truncate: bool, corners=None):
+    """Edge-function coefficients a, b, c (T, 3), sign-normalized so
+    inside => all >= 0, and area2 (T,) = |2 * signed area|."""
+    p = corners if corners is not None else verts[tris]
+    if truncate:
+        p = torch.trunc(p)
+    v0, v1, v2 = p[:, 0], p[:, 1], p[:, 2]
+
+    def edge_coeffs(pa, pb):
+        a = pa[:, 1] - pb[:, 1]
+        b = pb[:, 0] - pa[:, 0]
+        c = pb[:, 1] * pa[:, 0] - pb[:, 0] * pa[:, 1]
+        return a, b, c
+
+    a0, b0, c0 = edge_coeffs(v1, v2)
+    a1, b1, c1 = edge_coeffs(v2, v0)
+    a2, b2, c2 = edge_coeffs(v0, v1)
+    a = torch.stack([a0, a1, a2], dim=-1)
+    b = torch.stack([b0, b1, b2], dim=-1)
+    c = torch.stack([c0, c1, c2], dim=-1)
+    area2 = (v1[:, 0] - v0[:, 0]) * (v2[:, 1] - v0[:, 1]) - \
+        (v1[:, 1] - v0[:, 1]) * (v2[:, 0] - v0[:, 0])
+    sign = torch.where(area2 < 0, -1.0, 1.0)[:, None]
+    return a * sign, b * sign, c * sign, torch.abs(area2)
+
+
+def rasterize_bruteforce(verts, tris, vals, tri_valid, height: int,
+                         width: int, truncate: bool = True,
+                         chunk: int = 128) -> torch.Tensor:
+    """Every triangle against every pixel, in chunks of triangles.
+    verts (V, 2), tris (T, 3), vals (V,), tri_valid (T,) -> (H, W)."""
+    dev = verts.device
+    a, b, c, area2 = _tri_setup(verts, tris, truncate)
+    tvals = vals[tris]
+    ok = tri_valid & (area2 > 0)
+    denom = torch.where(area2 > 0, area2, torch.ones_like(area2))
+    xs = torch.arange(width, dtype=torch.float32, device=dev)
+    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    out = torch.full((height, width), float("-inf"), device=dev)
+    for s in range(0, tris.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        w = (a[sl, :, None, None] * xs[None, None, None, :]
+             + b[sl, :, None, None] * ys[None, None, :, None]
+             + c[sl, :, None, None])  # (C, 3, H, W)
+        inside = torch.all(w >= 0, dim=1) & ok[sl, None, None]
+        val = (w[:, 0] * tvals[sl, 0, None, None]
+               + w[:, 1] * tvals[sl, 1, None, None]
+               + w[:, 2] * tvals[sl, 2, None, None]) / denom[sl, None, None]
+        cand = torch.where(inside, val, torch.full_like(val, float("-inf")))
+        out = torch.maximum(out, torch.amax(cand, dim=0))
+    return torch.where(torch.isinf(out), torch.full_like(out, float("nan")),
+                       out)
+
+
+class TileCandidates(NamedTuple):
+    cdata: torch.Tensor  # (nty, ntx, K1, 16) rows [a0..2 b0..2 c0..2
+    # v0..2 inv_area valid 0 0], c in image coordinates; dead slots zero
+    max_count: torch.Tensor  # () int, largest per-tile overlap count
+
+
+def tile_candidates(verts, tris, vals, tri_valid, height: int, width: int,
+                    truncate: bool = True, tile_h: int = 32,
+                    max_per_tile: int = 160) -> TileCandidates:
+    """Triangle setup and bbox binning to (tile_h, 128) tiles
+    (pallas_raster._setup_one and _bin_tiles of the JAX package)."""
+    dev = verts.device
+    T = tris.shape[0]
+    nty = -(-height // tile_h)
+    ntx = -(-width // TILE_W)
+    K1 = min(max_per_tile, T)
+    corners = verts[tris]  # (T, 3, 2)
+    a, b, c, area2 = _tri_setup(verts, tris, truncate, corners=corners)
+    tvals = vals[tris]
+    p = torch.trunc(corners) if truncate else corners
+    xmin, xmax = torch.amin(p[..., 0], dim=1), torch.amax(p[..., 0], dim=1)
+    ymin, ymax = torch.amin(p[..., 1], dim=1), torch.amax(p[..., 1], dim=1)
+    ok = tri_valid & (area2 > 0)
+    inv_area = torch.where(area2 > 0, 1.0 / torch.where(
+        area2 > 0, area2, torch.ones_like(area2)), torch.zeros_like(area2))
+    packed = torch.cat([a, b, c, tvals, inv_area[:, None],
+                        ok[:, None].float(),
+                        torch.zeros((T, 2), device=dev)], dim=1)  # (T, 16)
+
+    tids = torch.arange(nty * ntx, device=dev)
+    ty = (tids // ntx).float() * tile_h
+    tx = (tids % ntx).float() * TILE_W
+    overlap = ((xmin[None, :] <= tx[:, None] + (TILE_W - 1))
+               & (xmax[None, :] >= tx[:, None])
+               & (ymin[None, :] <= ty[:, None] + (tile_h - 1))
+               & (ymax[None, :] >= ty[:, None]) & ok[None, :])
+    key = torch.where(overlap, torch.arange(T, device=dev)[None, :], -1)
+    kvals = torch.topk(key, K1, dim=1).values  # (n_tiles, K1)
+    k_valid = kvals >= 0
+    cdata = packed[torch.clamp(kvals, min=0)] * k_valid[..., None].float()
+    return TileCandidates(cdata=cdata.reshape(nty, ntx, K1, 16),
+                          max_count=overlap.sum(dim=1).max())
+
+
+def eval_tiles(cdata: torch.Tensor, tile_h: int = 32) -> torch.Tensor:
+    """Plain version of the tile kernel: (nty, ntx, K1, 16) candidates ->
+    (nty*tile_h, ntx*128) max-combined values, NEG where uncovered."""
+    nty, ntx, K1, _ = cdata.shape
+    dev = cdata.device
+    xs = torch.arange(TILE_W, dtype=torch.float32, device=dev)
+    ys = torch.arange(tile_h, dtype=torch.float32, device=dev)
+    ox = (torch.arange(ntx, device=dev) * TILE_W).float()
+    rows = []
+    for i in range(nty):  # one tile row at a time bounds the memory
+        cd = cdata[i]  # (ntx, K1, 16)
+        X = (ox[:, None, None, None] + xs)  # (ntx, 1, 1, 128)
+        Y = float(i * tile_h) + ys[:, None]  # (tile_h, 1)
+
+        def w(k):
+            return (cd[:, :, k, None, None] * X
+                    + cd[:, :, 3 + k, None, None] * Y
+                    + cd[:, :, 6 + k, None, None])  # (ntx, K1, th, 128)
+
+        w0, w1, w2 = w(0), w(1), w(2)
+        inv_area = cd[:, :, 12, None, None]
+        inside = ((w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+                  & (cd[:, :, 13, None, None] > 0))
+        val = (w0 * (cd[:, :, 9, None, None] * inv_area)
+               + w1 * (cd[:, :, 10, None, None] * inv_area)
+               + w2 * (cd[:, :, 11, None, None] * inv_area))
+        best = torch.where(inside, val, torch.full_like(val, NEG))
+        best = torch.amax(best, dim=1)  # (ntx, th, 128)
+        rows.append(best.permute(1, 0, 2).reshape(tile_h, ntx * TILE_W))
+    return torch.cat(rows, dim=0)
+
+
+def finish(out: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Crop the tile grid to (H, W); NaN where nothing covered."""
+    out = out[:height, :width]
+    return torch.where(out <= NEG * 0.5, torch.full_like(out, float("nan")),
+                       out)
+
+
+def rasterize(verts, tris, vals, tri_valid, height: int, width: int,
+              truncate: bool = True, tile_h: int = 32,
+              max_per_tile: int = 160) -> torch.Tensor:
+    """The tiled rasterizer in plain torch."""
+    cand = tile_candidates(verts, tris, vals, tri_valid, height, width,
+                           truncate, tile_h, max_per_tile)
+    return finish(eval_tiles(cand.cdata, tile_h), height, width)

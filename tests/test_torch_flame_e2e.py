@@ -1,0 +1,172 @@
+"""The slice as a whole: the tests/test_flame_e2e.py scene (160x120, 512
+features, photo_error_num_pfs=0) as uint8 frames for 12 frames through
+flame_tpu.Flame and flame_tpu_torch.Flame on the CPU.
+
+update() must return the same booleans frame by frame; both runs must
+meet the test_flame_e2e.py bounds; the final dense maps must cover the
+same pixels (IoU >= 0.95) with median |d idepth| / idepth <= 1e-2 where
+both cover. Trajectories are held to bounds rather than bit-equality:
+match decisions flip on float noise and the runs drift apart slowly."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import flame_tpu_torch  # noqa: E402
+from flame_tpu.core.flame import Flame as JFlame  # noqa: E402
+from flame_tpu.geometry import camera as jcam  # noqa: E402
+from flame_tpu.params import (DetectionParams, Params,  # noqa: E402
+                              SolverParams)
+from flame_tpu_torch import _kernels, convert  # noqa: E402
+from flame_tpu_torch.core import frame as tframe  # noqa: E402
+
+FX = 100.0
+W, H = 160, 120
+PLANE_Z = 5.0
+TRUE_IDEPTH = 1.0 / PLANE_Z
+N_FRAMES = 12
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def render(cam_x):
+    vv, uu = np.mgrid[0:H, 0:W].astype(np.float64)
+    X = (uu - W / 2) * PLANE_Z / FX + cam_x
+    Y = (vv - H / 2) * PLANE_Z / FX
+    tex = (128 + 60 * np.sin(4.1 * X + 0.9 * Y) + 35 * np.cos(1.73 * X)
+           + 18 * np.sin(2.31 * Y) + 10 * np.sin(0.83 * X))
+    return np.clip(tex, 0, 255).astype(np.uint8)
+
+
+def make_params():
+    return Params(
+        feature_capacity=512, edge_capacity=2048, triangle_capacity=1024,
+        poseframe_capacity=8, min_height=-100.0, max_height=100.0,
+        idepth_init=0.05, idepth_var_init=0.25, photo_error_num_pfs=0,
+        detection=DetectionParams(win_size=16),
+        solver=SolverParams(n_iters_per_frame=30, max_vertex_degree=16),
+        debug_quiet=True)
+
+
+def _K():
+    K = jcam.make_k(FX, FX, W / 2, H / 2)
+    return K, jcam.inv_k(K)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jp = make_params()
+    K, Kinv = _K()
+    jf = JFlame(W, H, K, Kinv, jp)
+    tf = flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                               convert.params_from_dict(
+                                   dataclasses.asdict(jp)),
+                               device=torch.device("cpu"))
+    launches = dict(_kernels.LAUNCHES)
+    jr, tr = [], []
+    for i in range(N_FRAMES):
+        q = np.array([1.0, 0, 0, 0], np.float32)
+        t = np.array([0.15 * i, 0, 0], np.float32)
+        img = render(0.15 * i)
+        jr.append(jf.update(i * 0.1, i, (jnp.asarray(q), jnp.asarray(t)),
+                            img, i % 2 == 0))
+        tr.append(tf.update(i * 0.1, i, (q, t), img, i % 2 == 0))
+    assert _kernels.LAUNCHES == launches  # CPU tensors never launch
+    return jf, tf, jr, tr
+
+
+def test_update_booleans_match(runs):
+    _, _, jr, tr = runs
+    assert jr == tr
+    assert not tr[0] and all(tr[6:])
+
+
+@pytest.mark.parametrize("which", ["jax", "torch"])
+def test_dense_map_and_raw_idepth_bounds(runs, which):
+    fl = runs[0] if which == "jax" else runs[1]
+    idm = fl.get_inverse_depth_map()
+    cov = np.mean(~np.isnan(idm))
+    assert cov > 0.3, cov
+    err = np.abs(idm[~np.isnan(idm)] - TRUE_IDEPTH) / TRUE_IDEPTH
+    assert np.median(err) < 0.1, np.median(err)
+    verts, mu, var = fl.get_raw_idepths()
+    assert verts.shape[0] > 30
+    assert np.median(np.abs(mu - TRUE_IDEPTH) / TRUE_IDEPTH) < 0.08
+    assert np.all(var >= 0)
+
+
+def test_final_maps_agree(runs):
+    jf, tf, _, _ = runs
+    a = jf.get_inverse_depth_map()
+    b = tf.get_inverse_depth_map()
+    ca, cb = ~np.isnan(a), ~np.isnan(b)
+    assert (ca & cb).sum() / (ca | cb).sum() >= 0.95
+    both = ca & cb
+    assert np.median(np.abs(a[both] - b[both]) / np.abs(a[both])) <= 1e-2
+    assert abs(jf.coverage() - tf.coverage()) < 0.05
+
+
+def test_mesh_and_stats(runs):
+    _, tf, _, _ = runs
+    mesh = tf.get_inverse_depth_mesh()
+    nv = mesh["vertices"].shape[0]
+    assert nv >= 3 and mesh["normals"].shape == (nv, 3)
+    assert mesh["triangles"].max() < nv and mesh["edges"].max() < nv
+    assert mesh["tri_validity"].shape == (mesh["triangles"].shape[0],)
+    n = mesh["normals"]
+    assert np.median(n[np.linalg.norm(n, axis=1) > 0.5][:, 2]) < -0.8
+    timings = tf.stats.snapshot()["timings_ms"]
+    for key in ("update", "frame_creation", "update_idepths", "triangulate",
+                "sync_graph", "smoother", "raster"):
+        assert key in timings, key
+    assert tf.failure_stats()["updates"] > 20
+
+
+def test_unported_paths_raise():
+    K, Kinv = _K()
+    for p in (flame_tpu_torch.Params(),  # photo_error_num_pfs=30
+              flame_tpu_torch.Params(photo_error_num_pfs=0, do_ba=True),
+              flame_tpu_torch.Params(photo_error_num_pfs=0,
+                                     solver=flame_tpu_torch.SolverParams(
+                                         async_topology=True))):
+        with pytest.raises(NotImplementedError):
+            flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv), p,
+                                  device="cpu")
+    p = convert.params_from_dict(dataclasses.asdict(make_params()))
+    fl = flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                               p.replace(poseframe_capacity=2), device="cpu")
+    pose = (np.array([1.0, 0, 0, 0]), np.zeros(3))
+    fl.update(0.0, 0, pose, render(0.0), True)
+    fl.update(0.1, 1, pose, render(0.0), True)
+    with pytest.raises(NotImplementedError):  # no eviction in the port
+        fl.update(0.2, 2, pose, render(0.0), True)
+
+
+def test_frame_insert_rejects_bad_slot():
+    stack = tframe.empty_stack(2, H, W, 5, "cpu")
+    f = tframe.create(0, torch.tensor([1.0, 0, 0, 0]), torch.zeros(3),
+                      torch.as_tensor(render(0.0)), 5)
+    tframe.insert(stack, 1, f)
+    assert bool(stack.valid[1]) and not bool(stack.valid[0])
+    for bad in (-1, 2):
+        with pytest.raises(IndexError):
+            tframe.insert(stack, bad, f)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, flame_tpu_torch, flame_tpu_torch.convert, "
+            "flame_tpu_torch.optimize.smoother_kernel, "
+            "flame_tpu_torch.ops.raster_kernel; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m.startswith('flame_tpu.') or m == 'flame_tpu' "
+            "for m in sys.modules), 'flame_tpu imported'")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env=env, timeout=120)

@@ -1,0 +1,150 @@
+"""The CUDA kernels of flame_tpu_torch against their plain torch versions,
+on the GPU. They skip without a CUDA device; on a GPU machine without
+jax, run them past tests/conftest.py (which imports jax) with
+`python -m pytest tests/test_torch_kernels.py -q --noconftest`.
+
+Tolerances: the smoother kernel sums a vertex's slots in another order
+than torch (rtol 2e-4 / atol 5e-5 after 40 iterations, the
+tests/test_pallas_smoother.py bound), and both copies of every edge's
+duals stay bit-equal. The raster kernel's inside test is exact on
+truncated vertices (identical NaN masks) and its values agree to 1e-5.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from flame_tpu_torch import RegularizerParams, _kernels  # noqa: E402
+from flame_tpu_torch.mesh import delaunay  # noqa: E402
+from flame_tpu_torch.ops import raster_kernel, rasterize  # noqa: E402
+from flame_tpu_torch.optimize import nltgv2, smoother_kernel  # noqa: E402
+from flame_tpu_torch.optimize import topology  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+V, E, D = 1024, 3072, 16
+W, H = 320, 240
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def graph(cuda):
+    rng = np.random.default_rng(5)
+    pts = rng.uniform([2, 2], [W - 2, H - 2], (V, 2)).astype(np.float32)
+    tri = delaunay.triangulate(pts)
+    edges = tri.edges.astype(np.int64)
+    n_e = edges.shape[0]
+    ranks = topology.build_edge_ranks(edges, V, E)
+    full = np.zeros((E, 2), np.int64)
+    full[:n_e] = edges
+    g = nltgv2.empty(V, E, D, cuda)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    topo = topology.from_edges(t(full), n_e, t(pts), g.edges, g.edge_mask,
+                               g.q1, g.q2, g.q3, E, V, D, ranks=t(ranks))
+    em = np.arange(E) < n_e
+    f = lambda a: t(np.asarray(a, np.float32))
+    x = f(rng.uniform(0.1, 0.3, V))
+    g = g.replace(
+        pos=t(pts), x=x, x_bar=x.clone(), w1=f(rng.normal(0, 1e-3, V)),
+        w2=f(rng.normal(0, 1e-3, V)), data_term=f(rng.uniform(0.1, 0.3, V)),
+        data_weight=torch.ones(V, device=cuda),
+        vtx_mask=t(rng.uniform(size=V) > 0.05),
+        edges=topo.edges, alpha=topo.alpha, beta=topo.edge_mask.float(),
+        q1=f(np.where(em, rng.uniform(-0.5, 0.5, E), 0)),
+        q2=f(np.where(em, rng.uniform(-0.5, 0.5, E), 0)),
+        q3=f(np.where(em, rng.uniform(-0.5, 0.5, E), 0)),
+        edge_mask=topo.edge_mask, inc_edge=topo.inc_edge,
+        inc_sign=topo.inc_sign, src_slot=topo.src_slot)
+    g = g.replace(w1_bar=g.w1.clone(), w2_bar=g.w2.clone())
+    return g, t(tri.triangles.astype(np.int64))
+
+
+def _iterate_args(g):
+    p = RegularizerParams()
+    tables, state = nltgv2.slot_prologue(g)
+    return (p, tables, g.data_term, (p.data_factor * g.data_weight)
+            .contiguous(), g.vtx_mask), state
+
+
+def test_smoother_kernel_matches_plain(graph):
+    g, _ = graph
+    args, state = _iterate_args(g)
+    before = _kernels.LAUNCHES["nltgv2_smoother"]
+    out_k = smoother_kernel.iterate(*args, state, 40)
+    assert _kernels.LAUNCHES["nltgv2_smoother"] == before + 40
+    out_p = nltgv2.iterate_plain(*args, state, 40)
+    for name, a, b in zip(nltgv2.SmoothState._fields, out_k, out_p):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-5, msg=name)
+    tables = args[1]
+    src = tables.srcf > 0
+    dst = tables.sgn < 0
+    for q in out_k[6:]:
+        a = torch.zeros(E, device=q.device)
+        b = torch.zeros(E, device=q.device)
+        a[g.inc_edge[src]] = q[src]
+        b[g.inc_edge[dst]] = q[dst]
+        assert torch.equal(a, b)
+
+
+def test_smoother_full_smooth_matches_plain(graph):
+    g, _ = graph
+    p = RegularizerParams()
+    a = smoother_kernel.smooth(p, g, 10)
+    b = nltgv2._smooth_vertex_centric(p, g, 10)
+    for name in ("x", "w1", "w2", "x_bar", "q1", "q2", "q3"):
+        torch.testing.assert_close(getattr(a, name), getattr(b, name),
+                                   rtol=2e-4, atol=5e-5, msg=name)
+
+
+def test_raster_kernel_matches_plain(graph):
+    g, tris = graph
+    vals = torch.rand(V, device=tris.device) + 0.5
+    valid = torch.ones(tris.shape[0], dtype=torch.bool, device=tris.device)
+    # Uniform random points are denser per tile than a detection-grid
+    # mesh; 256 candidates keep every overlap, so the brute force agrees.
+    cand = rasterize.tile_candidates(g.pos, tris, vals, valid, H, W,
+                                     max_per_tile=256)
+    assert int(cand.max_count) <= 256
+    before = _kernels.LAUNCHES["raster_tiles"]
+    out_k = rasterize.finish(raster_kernel.rasterize_tiles(cand.cdata), H, W)
+    assert _kernels.LAUNCHES["raster_tiles"] == before + 1
+    out_p = rasterize.finish(rasterize.eval_tiles(cand.cdata), H, W)
+    assert torch.equal(torch.isnan(out_k), torch.isnan(out_p))
+    m = ~torch.isnan(out_k)
+    torch.testing.assert_close(out_k[m], out_p[m], rtol=0, atol=1e-5)
+    ref = rasterize.rasterize_bruteforce(g.pos, tris, vals, valid, H, W)
+    assert torch.equal(torch.isnan(ref), torch.isnan(out_k))
+
+
+def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):
+    g, tris = graph
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain path taken for CUDA tensors")
+    monkeypatch.setattr(nltgv2, "iterate_plain", forbidden)
+    monkeypatch.setattr(rasterize, "eval_tiles", forbidden)
+    smoother_kernel.smooth(RegularizerParams(), g, 3)
+    vals = torch.ones(V, device=tris.device)
+    valid = torch.ones(tris.shape[0], dtype=torch.bool, device=tris.device)
+    raster_kernel.rasterize(g.pos, tris, vals, valid, H, W)
+    torch.cuda.synchronize()
+
+
+def test_wrappers_reject_bad_inputs(graph):
+    g, _ = graph
+    args, state = _iterate_args(g)
+    bad = state._replace(x=state.x.double())
+    with pytest.raises(ValueError):
+        smoother_kernel.iterate(*args, bad, 1)
+    with pytest.raises(ValueError):
+        raster_kernel.rasterize_tiles(
+            torch.zeros((2, 2, 8, 15), device=g.x.device))
