@@ -6,18 +6,32 @@
 Phases (any failure raises and the script exits non-zero):
   1. environment: versions, nvcc, the card's name and power limit; TF32
      is switched off for matmuls and cuDNN (the geometry needs full fp32);
-  2. build the CUDA kernels from flame_tpu_torch/csrc with nvcc;
-  3. the NLTGV2 smoother kernel against its plain torch version on a
+  2. build the CUDA kernels from flame_tpu_torch/csrc, one nvcc per
+     source, all started together;
+  3. the NLTGV2 smoother kernel (K1) against its plain torch version on a
      Delaunay graph of 4096 seeded points over 640x480 (D=20, 40
      iterations), including bit-equal dual copies at both edge ends;
-  4. the tile rasterizer kernel against its plain version on that mesh;
-  5. the main path: flame_tpu_torch.Flame at 640x480 with 4096 features
-     on a synthetic textured plane at 5 m, 30 frames, every second one a
-     poseframe; both kernels must run on every frame that makes a mesh,
-     and the dense map must cover >= 50% of the image within 1% median
-     relative error of the true inverse depth.
-The last lines are the kernels' JSON summary, the nvidia-smi line, and
-{"ok": true, "device": {...}}.
+  4. the tile rasterizer kernel (K2) against its plain version on that
+     mesh;
+  5. the batched tile rasterizer kernel (K2b) against its plain version
+     on 8 views of that mesh (shifted and scaled per view, per-view
+     values, one view with invalidated triangles) after one shared
+     binning pass;
+  6. the synchronous path: flame_tpu_torch.Flame at 640x480 with 4096
+     features on a synthetic textured plane at 5 m, 30 frames, every
+     second one a poseframe; K1 and K2 must run on every frame that
+     makes a mesh, and the dense map must cover >= 50% of the image
+     within 1% median relative error of the true inverse depth;
+  7. the throughput path: bench.py's configuration (async topology,
+     frame_batch=8, photo_error_num_pfs=30, 16 poseframe slots) for 96
+     frames of the same scene, once with frames already on the card
+     ("resident") and once with numpy frames ("host"); K2b must run once
+     per batched step, K1 40 times per post-Delaunay step, at least one
+     poseframe must be evicted, and the final map must meet the bounds
+     of phase 6.
+Each path runs with the launch counts set to 0 just before it and read
+just after. The last lines are the kernels' JSON summary, the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -81,9 +95,10 @@ def build():
     from flame_tpu_torch import _kernels
     t0 = time.perf_counter()
     _kernels.load()
+    libs = ", ".join(os.path.relpath(x)
+                     for x in _kernels.BUILD_INFO["libraries"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_kernels.BUILD_INFO['seconds']:.2f} s) "
-          f"-> {os.path.relpath(_kernels.BUILD_INFO['library'])}")
+          f"(parallel nvcc {_kernels.BUILD_INFO['seconds']:.2f} s) -> {libs}")
     for line in _kernels.BUILD_INFO["ptxas"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
@@ -210,6 +225,50 @@ def check_raster(g, tris_np, W=640, H=480):
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
 
 
+def check_raster_batch(g, tris_np, W=640, H=480, B=8):
+    from flame_tpu_torch.ops import raster_kernel, rasterize
+    dev = g.x.device
+    rng = np.random.default_rng(SEED + 2)
+    V, T = g.x.shape[0], tris_np.shape[0]
+    tris = torch.as_tensor(tris_np, device=dev)
+    # Per-view positions: translated and slightly scaled, as a camera
+    # moving through a batch sees the batch-start mesh.
+    verts = torch.stack([g.pos * (1.0 + 0.01 * b) + torch.tensor(
+        [3.0 * b, -2.0 * b], device=dev) for b in range(B)])
+    vals = torch.as_tensor(rng.uniform(0.5, 2.0, (B, V)), dtype=torch.float32,
+                           device=dev)
+    valid_np = np.ones((B, T), bool)
+    valid_np[3, rng.integers(0, T, T // 10)] = False
+    valid = torch.as_tensor(valid_np, device=dev)
+    cand = rasterize.tile_candidates_batch(
+        verts, tris, vals, valid, H, W,
+        max_per_tile=raster_kernel.MAX_PER_TILE_BATCH)
+    cd = cand.cdata.contiguous()
+    out_k = rasterize.finish(raster_kernel.rasterize_tiles_batch(cd), H, W)
+    out_p = rasterize.finish(rasterize.eval_tiles_batch(cd), H, W)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
+    if not torch.equal(nan_k, nan_p):
+        raise AssertionError(f"batched raster NaN masks differ at "
+                             f"{int((nan_k != nan_p).sum())} pixels")
+    m = ~nan_k
+    err = (out_k[m] - out_p[m]).abs().max().item()
+    if err > K2_ATOL:
+        raise AssertionError(f"batched raster max|kernel-plain| {err} > "
+                             f"{K2_ATOL}")
+    k_ms = _cuda_ms(lambda: raster_kernel.rasterize_tiles_batch(cd), 50)
+    p_ms = _cuda_ms(lambda: rasterize.eval_tiles_batch(cd), 5)
+    e2e_ms = _cuda_ms(lambda: raster_kernel.rasterize_batch(
+        verts, tris, vals, valid, H, W), 20)
+    print(f"K2b raster_tiles_batch B={B} {W}x{H} T={T}: max|kernel-plain| "
+          f"{err:.3g} (atol {K2_ATOL}), NaN masks equal, coverage "
+          f"{m.float().mean().item():.4f}; max union candidates per tile "
+          f"{int(cand.max_count)} of {raster_kernel.MAX_PER_TILE_BATCH}")
+    print(f"K2b time: kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms; "
+          f"with setup and binning {e2e_ms:.4f} ms (all {B} views)")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+
+
 def bench_params():
     """bench.py's VGA x 4096 configuration with the synchronous overrides
     and photo_error_num_pfs=0."""
@@ -224,24 +283,71 @@ def bench_params():
         do_ba=False)
 
 
-def main_path(smi, n_frames=30):
-    import flame_tpu_torch
-    from flame_tpu_torch import _kernels
-    W, H = 640, 480
-    FX = 525.0
-    PLANE_Z = 5.0
+def throughput_params():
+    """bench.py's VGA x 4096 configuration as bench.py runs it
+    (bench.py:69-140): async topology, frame_batch=8, topology_lag=2,
+    join_age=24, max_consecutive_sheds=8, photo_error_num_pfs=30."""
+    from flame_tpu_torch import SolverParams
+    p = bench_params()
+    return p.replace(photo_error_num_pfs=30, solver=SolverParams(
+        max_vertex_degree=20, n_iters_per_frame=40, async_topology=True,
+        frame_batch=8, topology_lag=2, join_age=24,
+        max_consecutive_sheds=8))
+
+
+W, H = 640, 480
+FX = 525.0
+PLANE_Z = 5.0
+
+
+def scene(n_frames):
+    """K, Kinv and the bench's textured plane at 5 m as uint8 frames, the
+    camera moving 8 cm per frame."""
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
     Kinv = np.linalg.inv(K.astype(np.float64)).astype(np.float32)
     vv, uu = np.mgrid[0:H, 0:W].astype(np.float64)
 
-    def render(cam_x):  # the bench's textured plane, uint8
+    def render(cam_x):
         X = (uu - W / 2) * PLANE_Z / FX + cam_x
         Y = (vv - H / 2) * PLANE_Z / FX
         tex = (128 + 60 * np.sin(21.0 * X + 4.5 * Y) + 35 * np.cos(8.7 * X)
                + 18 * np.sin(11.6 * Y) + 10 * np.sin(4.2 * X))
         return np.clip(tex, 0, 255).astype(np.uint8)
+    return K, Kinv, [render(0.08 * i) for i in range(n_frames)]
 
-    frames = [render(0.08 * i) for i in range(n_frames)]
+
+def pose(i):
+    return np.array([1.0, 0, 0, 0]), np.array([0.08 * i, 0.0, 0.0])
+
+
+def check_map(fl, label):
+    """Coverage and median relative error of the final dense map."""
+    idm = fl.get_inverse_depth_map()
+    cov = float(np.mean(~np.isnan(idm)))
+    truth = 1.0 / PLANE_Z
+    err = float(np.median(np.abs(idm[~np.isnan(idm)] - truth) / truth))
+    print(f"{label}: coverage {cov:.4f} (>= 0.5), median relative idepth "
+          f"error {err:.5f} (<= 0.01); features {fl._n_valid}, vertices "
+          f"{fl._n_members}, triangles {fl._n_tris}, edges {fl._n_edges}")
+    if not (cov >= 0.5 and err <= 0.01 and np.isfinite(idm[~np.isnan(idm)])
+            .all()):
+        raise AssertionError(f"{label}: output out of bounds")
+
+
+def stage_medians(fl, names, skip):
+    dev_ms = fl.stats.device_times_ms()
+    parts = []
+    for name in names:
+        v = dev_ms.get(name, [])
+        v = v[skip:] if len(v) > skip else v
+        parts.append(f"{name} {np.median(v):.3f}" if v else f"{name} -")
+    return ", ".join(parts)
+
+
+def main_path(smi, n_frames=30):
+    import flame_tpu_torch
+    from flame_tpu_torch import _kernels
+    K, Kinv, frames = scene(n_frames)
     fl = flame_tpu_torch.Flame(W, H, K, Kinv, bench_params(),
                                device=torch.device("cuda"))
     n_iters = fl.params.solver.n_iters_per_frame
@@ -250,9 +356,7 @@ def main_path(smi, n_frames=30):
     for i in range(n_frames):
         before = dict(_kernels.LAUNCHES)
         t0 = time.perf_counter()
-        ok = fl.update(i / 30.0, i, (np.array([1.0, 0, 0, 0]),
-                                     np.array([0.08 * i, 0.0, 0.0])),
-                       frames[i], i % 2 == 0)
+        ok = fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
         torch.cuda.synchronize()
         dt = 1000 * (time.perf_counter() - t0)
         if ok:
@@ -267,19 +371,12 @@ def main_path(smi, n_frames=30):
     launches = dict(_kernels.LAUNCHES)
     if meshed < n_frames // 2:
         raise AssertionError(f"only {meshed} of {n_frames} frames meshed")
+    for name in ("nltgv2_smoother", "raster_tiles"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never ran on the synchronous path")
 
-    idm = fl.get_inverse_depth_map()
-    cov = float(np.mean(~np.isnan(idm)))
-    truth = 1.0 / PLANE_Z
-    err = float(np.median(np.abs(idm[~np.isnan(idm)] - truth) / truth))
-    print(f"main path 640x480, 4096 features, {n_frames} frames "
-          f"({meshed} meshed): coverage {cov:.4f} (>= 0.5), median "
-          f"relative idepth error {err:.5f} (<= 0.01); features "
-          f"{fl._n_valid}, vertices {fl._n_members}, triangles "
-          f"{fl._n_tris}, edges {fl._n_edges}")
-    if not (cov >= 0.5 and err <= 0.01 and np.isfinite(idm[~np.isnan(idm)])
-            .all()):
-        raise AssertionError("main path output out of bounds")
+    check_map(fl, f"main path 640x480, 4096 features, {n_frames} frames "
+                  f"({meshed} meshed)")
     from flame_tpu_torch.ops import raster_kernel, rasterize
     g, tris = fl._graph, fl._tris
     tri_mask = (torch.arange(tris.shape[0], device=tris.device)
@@ -289,19 +386,122 @@ def main_path(smi, n_frames=30):
     print(f"main path final mesh: max candidates per tile "
           f"{int(cand.max_count)} of max_per_tile "
           f"{raster_kernel.MAX_PER_TILE}")
-    dev_ms = fl.stats.device_times_ms()
     skip = 4  # the first meshed frames include one-time allocations
-    parts = []
-    for name in ("frame_creation", "update_idepths", "triangulate",
-                 "sync_graph", "smoother", "raster"):
-        v = dev_ms.get(name, [])
-        v = v[skip:] if len(v) > skip else v
-        parts.append(f"{name} {np.median(v):.3f}")
     print(f"main path median ms per stage (CUDA events) on {smi}: "
-          + ", ".join(parts))
+          + stage_medians(fl, ("frame_creation", "update_idepths",
+                               "triangulate", "sync_graph", "smoother",
+                               "raster"), skip))
     print(f"main path median frame {np.median(frame_ms[skip:]):.3f} ms "
           f"(host wall incl. synchronize, frames {skip + 1}-{meshed} of "
           f"the meshed) on {smi}; launches {launches}")
+    return launches
+
+
+def batch_overflow(fl, first_frame):
+    """The next batch's 8 views (frames first_frame.. with the scene's
+    poses) of the final mesh, projected as pipeline.batch_step projects
+    it: the largest union-bbox candidate count per tile, and the share of
+    the pixels that per-view binning without a cap covers which the
+    shared binning at MAX_PER_TILE_BATCH leaves empty."""
+    from flame_tpu_torch.core import pipeline
+    from flame_tpu_torch.ops import raster_kernel, rasterize
+    dev = fl.device
+    B = fl.params.solver.frame_batch
+    qt = [[torch.as_tensor(x, dtype=torch.float32, device=dev)
+           for x in pose(first_frame + b)] for b in range(B)]
+    tris = fl._tris
+    pos, idp, tri_ok = pipeline.project_views(
+        fl.K, fl.Kinv, fl._graph, fl._graph_scale, *fl._last_sync_pose,
+        torch.stack([q for q, _ in qt]), torch.stack([t for _, t in qt]),
+        tris, fl._n_tris)
+    cand = rasterize.tile_candidates_batch(
+        pos, tris, idp, tri_ok, H, W,
+        max_per_tile=raster_kernel.MAX_PER_TILE_BATCH)
+    shared = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata), H, W)
+    full = torch.stack([rasterize.rasterize(pos[b], tris, idp[b], tri_ok[b],
+                                            H, W, max_per_tile=1024)
+                        for b in range(B)])
+    covered = ~torch.isnan(full)
+    lost = (covered & torch.isnan(shared)).sum().item() \
+        / max(covered.sum().item(), 1)
+    return int(cand.max_count), lost
+
+
+def throughput_path(smi, mode, n_frames=96):
+    """The batched async path over n_frames with 'resident' (uint8 on the
+    card, staged before the run) or 'host' (numpy uint8) frames."""
+    import flame_tpu_torch
+    from flame_tpu_torch import _kernels
+    dev = torch.device("cuda")
+    K, Kinv, frames = scene(n_frames)
+    if mode == "resident":
+        frames = [torch.as_tensor(f, device=dev) for f in frames]
+        torch.cuda.synchronize()
+    fl = flame_tpu_torch.Flame(W, H, K, Kinv, throughput_params(),
+                               device=dev)
+    p = fl.params
+    B = p.solver.frame_batch
+    _kernels.reset_launches()
+    batch_ms, t_group = [], None
+    t_run = time.perf_counter()
+    for i in range(n_frames):
+        if t_group is None:
+            t_group = time.perf_counter()
+        d0 = fl._dispatches
+        fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+        if fl._dispatches != d0:
+            torch.cuda.synchronize()
+            batch_ms.append(1000 * (time.perf_counter() - t_group) / B)
+            t_group = None
+        elif not fl._batch_pending:  # a frame of the single path
+            t_group = None
+    label = (f"throughput path ({mode} frames) 640x480, 4096 features, "
+             f"{n_frames} frames")
+    check_map(fl, label)  # flushes the frames still buffered
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = dict(_kernels.LAUNCHES)
+
+    n_post = len(fl.stats.device_times_ms().get("sync_graph", []))
+    n_iters = p.solver.n_iters_per_frame
+    evictions = int(fl.stats.stats("pf_evictions"))
+    if not (fl._dispatches >= 1
+            and launches["raster_tiles_batch"] == fl._dispatches):
+        raise AssertionError(f"{mode}: raster_tiles_batch launches "
+                             f"{launches['raster_tiles_batch']} vs "
+                             f"{fl._dispatches} batched steps")
+    if launches["nltgv2_smoother"] != n_iters * n_post \
+            or launches["raster_tiles"] != n_post or n_post < 1:
+        raise AssertionError(f"{mode}: smoother launches "
+                             f"{launches['nltgv2_smoother']}, raster "
+                             f"{launches['raster_tiles']} for {n_post} "
+                             f"post-Delaunay steps")
+    if evictions < 1:
+        raise AssertionError(f"{mode}: no poseframe was evicted")
+    skip = 2  # the first batches include one-time allocations
+    lat = fl.latency_percentiles()
+    from flame_tpu_torch.ops import raster_kernel
+    print(f"{label}: {fl._dispatches} batched steps, {n_post} post-Delaunay "
+          f"steps, {evictions} poseframe evictions, "
+          f"{int(fl.stats.stats('packed_sheds'))} shed snapshots; "
+          f"launches {launches}; run {run_s:.2f} s")
+    run_max = fl.failure_stats()["raster_max_union_candidates"]
+    nxt_max, lost = batch_overflow(fl, n_frames)
+    steps = [int(c) for c in fl._raster_union]
+    print(f"{label}: batched raster union candidates per tile, per step "
+          f"{steps}, max {run_max} of {raster_kernel.MAX_PER_TILE_BATCH}; "
+          f"final mesh "
+          f"in the next batch's views {nxt_max}, leaving {100 * lost:.3f}% "
+          f"of the covered pixels empty")
+    print(f"{label}: median ms per frame {np.median(batch_ms[skip:]):.3f} "
+          f"(batch wall incl. synchronize / {B}, batches {skip + 1}-"
+          f"{len(batch_ms)}); update->map latency p50/p95 "
+          + (f"{lat[0]:.3f}/{lat[1]:.3f} ms" if lat else "none")
+          + f" on {smi}")
+    print(f"{label}: median ms per batched step (CUDA events) on {smi}: "
+          + stage_medians(fl, ("raster_batch", "update_idepths",
+                               "sync_graph", "smoother", "raster",
+                               "topo_upload"), skip))
     return launches
 
 
@@ -311,7 +511,10 @@ def main():
     g, tris, _ = make_graph(torch.device("cuda"))
     k1 = check_smoother(g)
     k2 = check_raster(g, tris)
-    launches = main_path(smi)
+    k2b = check_raster_batch(g, tris)
+    runs = [main_path(smi)] + [throughput_path(smi, mode)
+                               for mode in ("resident", "host")]
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",
              source="flame_tpu_torch/csrc/nltgv2_smoother.cu",
@@ -321,10 +524,14 @@ def main():
              source="flame_tpu_torch/csrc/raster.cu",
              replaces="flame_tpu/ops/pallas_raster.py:161",
              launches=launches["raster_tiles"], **k2),
+        dict(name="raster_tiles_batch", route="cuda",
+             source="flame_tpu_torch/csrc/raster.cu",
+             replaces="flame_tpu/ops/pallas_raster.py:233",
+             launches=launches["raster_tiles_batch"], **k2b),
     ]
     for k in kernels:
         if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} never ran on the main path")
+            raise AssertionError(f"{k['name']} never ran on the main paths")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Both kernels (csrc/nltgv2_smoother.cu, csrc/raster.cu) are compiled with
-nvcc for sm_90a into ONE shared library with a plain C interface, bound
-with ctypes. The build runs at first use, into flame_tpu_torch/_build/,
-named by a hash of the sources and flags, so a checkout builds its own
-kernels and a changed source never loads a stale library. A missing nvcc
-or a failed build raises with the compiler's output.
+Each kernel source (csrc/nltgv2_smoother.cu, csrc/raster.cu) is compiled
+by its own nvcc process for sm_90a into a shared library with a plain C
+interface, bound with ctypes; the processes start together, so the build
+takes as long as the slowest source. The build runs at first use, into
+flame_tpu_torch/_build/, each library named by a hash of its source and
+the flags, so a checkout builds its own kernels and a changed source
+never loads a stale library. A missing nvcc or a failed build raises
+with the compiler's output.
 
 Each wrapper adds one to its entry of LAUNCHES per kernel launch; a run
 reads the counts to show that its path went through the kernels.
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -27,11 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"nltgv2_smoother": 0, "raster_tiles": 0}
+LAUNCHES = {"nltgv2_smoother": 0, "raster_tiles": 0, "raster_tiles_batch": 0}
 
-# Filled by load(): build seconds (0 when the library was already built)
-# and the compiler's register/shared-memory report.
-BUILD_INFO = {"seconds": 0.0, "ptxas": "", "library": ""}
+# Filled by load(): wall seconds of the parallel build (0 when every
+# library was already built), the compiler's register/shared-memory
+# report and the libraries loaded.
+BUILD_INFO = {"seconds": 0.0, "ptxas": "", "libraries": []}
 
 _lock = threading.Lock()
 _lib = None
@@ -53,51 +57,69 @@ def _nvcc() -> str:
                        "CUDA kernels of flame_tpu_torch cannot be built")
 
 
-def _library_path() -> str:
+def _library_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libflame_kernels_{h.hexdigest()[:16]}.so")
+    with open(os.path.join(CSRC, source), "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str):
+def _build(paths: dict):
+    """nvcc for every source in paths at once; waits for all of them."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half
+    procs = []
+    for source, path in paths.items():
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+        procs.append((cmd, tmp, path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed, reports = [], []
+    for cmd, tmp, path, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+            continue
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half
+        reports.append(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["ptxas"] = res.stderr
+    BUILD_INFO["ptxas"] = "".join(reports)
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+def load() -> types.SimpleNamespace:
+    """The kernels' C entry points, built on first use."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = _library_path()
-        if not os.path.exists(path):
-            _build(path)
-        lib = ctypes.CDLL(path)
+        paths = {s: _library_path(s) for s in SOURCES}
+        missing = {s: p for s, p in paths.items() if not os.path.exists(p)}
+        if missing:
+            _build(missing)
+        smoother = ctypes.CDLL(paths["nltgv2_smoother.cu"])
+        raster = ctypes.CDLL(paths["raster.cu"])
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.nltgv2_iterate.restype = I
-        lib.nltgv2_iterate.argtypes = (
+        smoother.nltgv2_iterate.restype = I
+        smoother.nltgv2_iterate.argtypes = (
             [P] * 12          # xb/w1b/w2b in, xb/w1b/w2b out, x w1 w2, q1-3
             + [P] * 7         # nbr sdx sdy sal sbe sgn srcf
             + [P] * 3         # data weight vmask
             + [I, I] + [F] * 5 + [P])
-        lib.raster_tiles.restype = I
-        lib.raster_tiles.argtypes = [P, P, I, I, I, I, P]
-        BUILD_INFO["library"] = path
-        _lib = lib
-        return lib
+        raster.raster_tiles.restype = I
+        raster.raster_tiles.argtypes = [P, P, I, I, I, I, P]
+        raster.raster_tiles_batch.restype = I
+        raster.raster_tiles_batch.argtypes = [P, P, I, I, I, I, I, P]
+        BUILD_INFO["libraries"] = list(paths.values())
+        _lib = types.SimpleNamespace(
+            nltgv2_iterate=smoother.nltgv2_iterate,
+            raster_tiles=raster.raster_tiles,
+            raster_tiles_batch=raster.raster_tiles_batch)
+        return _lib
 
 
 def check_cuda_error(code: int, name: str):

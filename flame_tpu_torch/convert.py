@@ -2,7 +2,9 @@
 
 Takes plain Python/numpy data only (dataclasses.asdict of the JAX Params,
 dicts of numpy arrays of its state containers), so this module imports
-no JAX. The tests use it to feed both packages the same solver state.
+no JAX. The tests use it to feed both packages the same solver state:
+the parameters, the poseframe stack, the features, the graph (its scale
+is a plain float) and the applied topology.
 """
 
 import dataclasses
@@ -80,6 +82,30 @@ def curr_features_from_numpy(d: Mapping, device) -> CurrFeatures:
                         idepth=_t(d["idepth"], device, f32),
                         var=_t(d["var"], device, f32),
                         valid=_t(d["valid"], device, torch.bool))
+
+
+def topology_from_words(words: np.ndarray, triangle_capacity: int,
+                        edge_capacity: int, device) -> dict:
+    """The port's topology (tris, n_tris, edges, n_edges, edge_ranks: the
+    keyword arguments of pipeline._post_delaunay_inner and batch_step)
+    from the JAX package's u16 topology words [n_tris, n_edges | tris
+    (T, 3) | edge_src | ranks lo | hi << 8 | carry] (vertex-smoother
+    layout of flame_tpu's Flame._host_triangulate). The carry segment is
+    not read: the port carries duals by matching vertex pairs."""
+    w = np.asarray(words).astype(np.int64)
+    T, E = triangle_capacity, edge_capacity
+    n_tris, n_edges = int(w[0]), int(w[1])
+    tris = w[2: 2 + 3 * T].reshape(T, 3)
+    edge_src = w[2 + 3 * T: 2 + 3 * T + E]
+    rk = w[2 + 3 * T + E: 2 + 3 * T + 2 * E]
+    a = tris.reshape(-1)
+    b = tris[:, [1, 2, 0]].reshape(-1)
+    edges = np.stack([np.minimum(a, b), np.maximum(a, b)], axis=1)[edge_src]
+    edges[n_edges:] = 0
+    ranks = np.stack([rk & 0xFF, rk >> 8], axis=1)
+    return dict(tris=_t(tris, device, torch.int64), n_tris=n_tris,
+                edges=_t(edges, device, torch.int64), n_edges=n_edges,
+                edge_ranks=_t(ranks, device, torch.int64))
 
 
 def graph_state_from_numpy(d: Mapping, device) -> GraphState:

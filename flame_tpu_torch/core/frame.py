@@ -5,6 +5,12 @@ reflect-101 padding and central gradients; poseframes live in a stacked
 [F, ...] table with a validity mask so each feature gathers its anchor
 frame's image and pose with one index. The JAX stack's packed-corner
 sample table (img_pack) is not carried: the port samples img_pad directly.
+
+The stack is updated in place. The JAX package's masked forms
+(insert_masked, set_idepthmap_masked) exist only because a lax.scan body
+cannot branch; the port's batch body is a Python loop, so it calls
+insert and set_idepthmap when the frame is a poseframe and skips them
+otherwise.
 """
 
 from dataclasses import dataclass
@@ -91,5 +97,33 @@ def insert(stack: FrameStack, slot: int, frame: Frame) -> FrameStack:
 def set_idepthmap(stack: FrameStack, slot: int,
                   idepthmap: torch.Tensor) -> FrameStack:
     stack.idepthmap[_check_slot(stack, slot)] = idepthmap
+    return stack
+
+
+def set_pose(stack: FrameStack, slot: int, q: torch.Tensor,
+             t: torch.Tensor) -> FrameStack:
+    """Update one poseframe pose in place (the updatePoseFramePoses hook,
+    reference flame.h:155-164)."""
+    slot = _check_slot(stack, slot)
+    stack.q[slot] = q
+    stack.t[slot] = t
+    return stack
+
+
+def set_poses(stack: FrameStack, slots, qs: torch.Tensor,
+              qt: torch.Tensor) -> FrameStack:
+    """Write several poses at once: slots (S,), qs (S, 4), qt (S, 3)."""
+    idx = torch.as_tensor([_check_slot(stack, s) for s in slots],
+                          dtype=torch.int64, device=stack.q.device)
+    stack.q[idx] = qs.to(stack.q.dtype)
+    stack.t[idx] = qt.to(stack.t.dtype)
+    return stack
+
+
+def remove(stack: FrameStack, slot: int) -> FrameStack:
+    """Free a poseframe slot in place (its rows stay until overwritten)."""
+    slot = _check_slot(stack, slot)
+    stack.valid[slot] = False
+    stack.frame_id[slot] = -1
     return stack
 

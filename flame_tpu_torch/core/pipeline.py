@@ -1,11 +1,13 @@
 """Per-frame pipeline steps over fixed-capacity state.
 
-Port of the synchronous single-device parts of flame_tpu/core/pipeline.py
+Port of the single-device parts of flame_tpu/core/pipeline.py
 (reference flame.cc: updateFeatureIDepths :1280-1534, trackFeature
 :1536-1752, projectFeatures :1754-1860, projectGraph :1862-1938,
-syncGraph :1940-2188). Feature slot i is graph vertex slot i. Functions
-are plain torch on whatever device the state lives on; the JAX package's
-vmaps are a leading feature dimension here.
+syncGraph :1940-2188, prunePoseFrames :554-706), the batched step of the
+throughput path included; bundle adjustment's packing is not ported.
+Feature slot i is graph vertex slot i. Functions are plain torch on
+whatever device the state lives on; the JAX package's vmaps are a leading
+feature dimension here.
 """
 
 import contextlib
@@ -15,12 +17,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flame_tpu_torch.core import detection
+from flame_tpu_torch.core import detection, keyframe
 from flame_tpu_torch.core import frame as frame_mod
 from flame_tpu_torch.core.frame import Frame, FrameStack
 from flame_tpu_torch.geometry import epipolar, se3
 from flame_tpu_torch.mesh import filters as mesh_filters
 from flame_tpu_torch.ops import raster_kernel
+from flame_tpu_torch.ops import rasterize as raster
 from flame_tpu_torch.optimize import nltgv2, smoother_kernel
 from flame_tpu_torch.optimize import topology as topo_mod
 from flame_tpu_torch.params import Params
@@ -334,14 +337,20 @@ def _detect_and_insert(params: Params, K, Kinv, stack: FrameStack,
                        curr_pf_slot: int, feats3: FeatureState,
                        curr: CurrFeatures, prev_q, prev_t, id_base: int,
                        seed_map) -> FeatureState:
-    """Poseframe detection against the previous frame + insertion.
-    Comparison-poseframe scoring (photo_error_num_pfs > 0) is not
-    ported."""
+    """Poseframe detection + insertion. With photo_error_num_pfs > 0 the
+    epipolar direction comes from the best-scoring past poseframe
+    (keyframe.best_comparison_pose, reference getPoseFrame
+    flame.cc:775-820), else, or when no candidate survives, from the
+    previous frame. The choice stays on the device."""
+    cmp_q, cmp_t = prev_q, prev_t
     if params.photo_error_num_pfs > 0:
-        raise NotImplementedError(
-            "photo_error_num_pfs > 0 (core/keyframe.py scoring) is not "
-            "ported; set photo_error_num_pfs=0")
-    det_out = _detect(params, K, Kinv, stack, curr_pf_slot, prev_q, prev_t,
+        H, W = stack.gradx.shape[1:]
+        cq, ct, cok = keyframe.best_comparison_pose(
+            W, H, K, Kinv, stack.q, stack.t, stack.frame_id, stack.valid,
+            curr_pf_slot, params.photo_error_num_pfs)
+        cmp_q = torch.where(cok, cq, prev_q)
+        cmp_t = torch.where(cok, ct, prev_t)
+    det_out = _detect(params, K, Kinv, stack, curr_pf_slot, cmp_q, cmp_t,
                       curr.xy, curr.valid)
     return insert_detections(params, feats3, det_out, curr_pf_slot,
                              seed_map, id_base)
@@ -532,6 +541,105 @@ def _post_delaunay_inner(params: Params, K, Kinv, graph: nltgv2.GraphState,
                               coverage)
 
 
+def project_views(K, Kinv, graph: nltgv2.GraphState, graph_scale, sync_q,
+                  sync_t, qs, ts, tris, n_tris: int):
+    """The mesh in B views: vertex pixels live in the frame at (sync_q,
+    sync_t); qs (B, 4) / ts (B, 3) are the views' poses. Returns per-view
+    vertex pixels (B, V, 2), idepths (B, V) and triangle validity (B, T):
+    the first n_tris triangles whose vertices are graph members in front
+    of the camera."""
+    # Geometry broadcasts (B, 1) against the V vertices.
+    geo = epipolar.load_relative(K, Kinv, (sync_q.float(), sync_t.float()),
+                                 (qs[:, None], ts[:, None]))
+    pos, idepth = epipolar.project_idepth(geo, graph.pos,
+                                          graph.x * graph_scale)
+    ok = graph.vtx_mask & (idepth > 0)
+    tri_in = torch.arange(tris.shape[0], device=tris.device) < n_tris
+    return pos, idepth, tri_in[None] & torch.all(ok[:, tris], dim=2)
+
+
+def batch_step(params: Params, K, Kinv, stack: FrameStack,
+               feats: FeatureState, graph: nltgv2.GraphState, graph_scale,
+               imgs, fids, qs, ts, pf_flags, det_flags, pf_slots, id_bases,
+               prev_q, prev_t, sync_q, sync_t, seed_map, topo: dict,
+               width: int, height: int, timed=None):
+    """B frames in one step (flame_tpu/core/pipeline.py::batch_step):
+    per-frame tracking with the exact sequential semantics, then one
+    post-Delaunay section (topology, graph sync, smoothing, mesh outputs)
+    on the last frame's state.
+
+    Each frame gets its own dense map: the batch-start mesh (vertex
+    pixels of the sync frame, the previous batch's last frame) is
+    projected into every frame's view and all B maps are rasterized up
+    front with one shared binning pass (rasterize.tile_candidates_batch,
+    then the CUDA kernel K2b on the GPU). Frame b's detection seeds from
+    frame b-1's map (frame 0 from seed_map, the previous output map), and
+    a poseframe stashes its own map into the stack. The JAX package runs
+    the frames as a lax.scan with masked inserts; here they are a Python
+    loop that inserts only on poseframes.
+
+    imgs: B (H, W) uint8 tensors on the state's device; qs/ts: B (4,) /
+    (3,) poses; pf_flags, det_flags, pf_slots, id_bases: per-frame Python
+    values (pf_slots[b] is the current poseframe slot during frame b).
+    prev_q/prev_t: pose of the frame before the batch. topo: the applied
+    topology (tris, n_tris, edges, n_edges, edge_ranks), whose triangles
+    the per-frame maps draw; the stack is updated in place. timed:
+    optional context-manager factory for the "raster_batch",
+    "update_idepths" and "sync_graph" stages.
+
+    Returns (fnew_last, stack, feats', curr_last, member_last, stats
+    summed over the batch, packed, graph', vtx_idepths, normals,
+    tri_validity, idepthmap, graph_scale', coverage, max_union): the last
+    is the largest per-tile count of union-bbox candidates, a device
+    scalar; above MAX_PER_TILE_BATCH the per-frame maps lost triangles
+    (the lowest-index ones of that tile), as on the TPU."""
+    timed = timed or _no_timer
+    B = len(imgs)
+    qs = torch.stack([q.float() for q in qs])
+    ts = torch.stack([t.float() for t in ts])
+    tris = topo["tris"].long()
+
+    with timed("raster_batch"):
+        pos_views, id_views, tri_ok_views = project_views(
+            K, Kinv, graph, graph_scale, sync_q, sync_t, qs, ts, tris,
+            topo["n_tris"])
+        cand = raster.tile_candidates_batch(
+            pos_views, tris, id_views, tri_ok_views, height, width,
+            max_per_tile=raster_kernel.MAX_PER_TILE_BATCH)
+        dense_views = raster.finish(raster_kernel.rasterize_tiles_batch(
+            cand.cdata.contiguous()), height, width)
+
+    with timed("update_idepths"):
+        pq, pt = prev_q, prev_t
+        stats = None
+        for b in range(B):
+            slot = int(pf_slots[b])
+            f = frame_mod.create(fids[b], qs[b], ts[b], imgs[b], params.pad)
+            if pf_flags[b]:
+                frame_mod.insert(stack, slot, f)
+            feats, curr, member, st, _ = track_project_sync(
+                params, K, Kinv, stack, feats, f, slot)
+            if det_flags[b]:
+                feats = _detect_and_insert(
+                    params, K, Kinv, stack, slot, feats, curr, pq, pt,
+                    int(id_bases[b]),
+                    seed_map if b == 0 else dense_views[b - 1])
+            if pf_flags[b]:
+                frame_mod.set_idepthmap(stack, slot, dense_views[b])
+            stats = st if stats is None else stats + st
+            pq, pt = f.q, f.t
+        packed = pack_track_outputs(feats, curr, member)
+
+    with timed("sync_graph"):
+        post = _post_delaunay_inner(
+            params, K, Kinv, graph, member, curr, (sync_q, sync_t),
+            (f.q, f.t), graph_scale, width, height,
+            dense_views[-1] if params.init_with_prediction else None,
+            timed=timed, **topo)
+    return (f, stack, feats, curr, member, stats, packed) + post \
+        + (cand.max_count,)
+
+
 def mesh_outputs(params: Params, K, Kinv, width: int, height: int, graph,
                  tris, tri_mask, graph_scale, timed=None):
     """Vertex idepths, normals, triangle filters and the dense map
@@ -553,3 +661,38 @@ def mesh_outputs(params: Params, K, Kinv, width: int, height: int, graph,
 def as_numpy_packed(packed: torch.Tensor) -> np.ndarray:
     """The one device->host copy per frame: the packed snapshot as u16."""
     return packed.cpu().numpy().astype(np.uint16)
+
+
+def reanchor_features(feats: FeatureState, K, Kinv, stack: FrameStack,
+                      kill_pf_mask, target_slot: int, border_lo: float,
+                      border_hi_x: float,
+                      border_hi_y: float) -> FeatureState:
+    """Move the features anchored in pruned poseframes (kill_pf_mask (F,)
+    bool) onto the poseframe at target_slot (reference prunePoseFrames,
+    flame.cc:603-700): predict through the old->target geometry, scale
+    the variance by (mu'/mu)^4, invalidate on a failed or out-of-border
+    move."""
+    needs_move = feats.valid & kill_pf_mask[feats.pf_slot]
+    q_rel, t_rel = se3.mul(se3.inverse((stack.q[target_slot],
+                                        stack.t[target_slot])),
+                           (stack.q[feats.pf_slot], stack.t[feats.pf_slot]))
+    geos = epipolar.load(K, Kinv, q_rel, t_rel)
+    ok, u_pf, id_pf, _ = idfilter.predict(geos, 1.0, feats.xy,
+                                          feats.idepth_mu, feats.idepth_var)
+    in_bounds = ((u_pf[:, 0] >= border_lo) & (u_pf[:, 0] < border_hi_x)
+                 & (u_pf[:, 1] >= border_lo) & (u_pf[:, 1] < border_hi_y))
+    move_ok = needs_move & ok & in_bounds
+
+    mu = feats.idepth_mu
+    nonzero = torch.abs(mu) > 0
+    ratio = torch.where(nonzero, id_pf / torch.where(nonzero, mu,
+                                                     torch.ones_like(mu)),
+                        torch.ones_like(mu))
+    vf4 = torch.where(id_pf < 1e-6, torch.ones_like(ratio), ratio ** 4)
+    return feats.replace(
+        xy=torch.where(needs_move[:, None], u_pf, feats.xy),
+        pf_slot=torch.where(needs_move, target_slot, feats.pf_slot),
+        idepth_mu=torch.where(needs_move, id_pf, mu),
+        idepth_var=torch.where(needs_move, feats.idepth_var * vf4,
+                               feats.idepth_var),
+        valid=torch.where(needs_move, move_ok, feats.valid))

@@ -1,10 +1,14 @@
 // Tile rasterizer: max-combine of barycentric values over each tile's
-// candidate triangles.
+// candidate triangles, for one view (raster_tiles) or for B views of one
+// triangle set (raster_tiles_batch).
 //
-// Replaces: flame_tpu/ops/pallas_raster.py::_kernel (driven by
-// rasterize, grid (nty, ntx)). Setup and bbox binning stay plain torch
-// (ops/rasterize.py::tile_candidates), as they were XLA outside the TPU
-// kernel.
+// Replaces: flame_tpu/ops/pallas_raster.py::_kernel, driven by rasterize
+// (grid (nty, ntx)) and by rasterize_batch (grid (B, nty, ntx), the
+// per-frame dense maps of pipeline.batch_step). Setup and bbox binning
+// stay plain torch (ops/rasterize.py::tile_candidates and
+// tile_candidates_batch, the latter one shared binning pass over the
+// union of each triangle's per-view bboxes), as they were XLA outside
+// the TPU kernel. Binning on the device is queued.
 //
 // Input: per tile, K1 candidate rows of 16 floats
 // [a0 a1 a2 | b0 b1 b2 | c0 c1 c2 | v0 v1 v2 | inv_area | valid | 0 0]
@@ -25,7 +29,11 @@
 // tile's K1x16 rows staged once in shared memory (10 KB at K1=160, read
 // as broadcasts), one thread per pixel column keeping the 32 running
 // maxima of its column in registers, and stores coalesced along x.
-// Next step: binning on the device in the same launch.
+// The batched form is the same kernel with the view on blockIdx.z and
+// per-view strides into cdata and out: 8 x 75 = 600 CTAs at K1 <= 192,
+// each bound by its 192-row candidate loop per pixel row (a thread walks
+// every candidate for each of its 32 pixels). Next step: binning on the
+// device in the same launch.
 
 #include <cuda_runtime.h>
 
@@ -41,7 +49,13 @@ __global__ void raster_tiles_kernel(const float* __restrict__ cdata,
   extern __shared__ float rows[];  // k1 * 16
   const int tile = blockIdx.x;
   const int ty = tile / ntx, tx = tile % ntx;
-  const float* src = cdata + static_cast<size_t>(tile) * k1 * 16;
+  const int W = ntx * kTileW;
+  // View blockIdx.z: its candidates follow the previous views' nty*ntx
+  // tiles, its map the previous views' (nty*tile_h) x W grids.
+  const size_t view = blockIdx.z;
+  const size_t nty = gridDim.x / ntx;
+  const float* src = cdata + (view * gridDim.x + tile) * k1 * 16;
+  out += view * nty * tile_h * W;
   for (int i = threadIdx.x; i < k1 * 16; i += blockDim.x) rows[i] = src[i];
   __syncthreads();
 
@@ -71,7 +85,6 @@ __global__ void raster_tiles_kernel(const float* __restrict__ cdata,
     }
   }
 
-  const int W = ntx * kTileW;
   float* dst = out + static_cast<size_t>(ty * tile_h) * W + tx * kTileW +
                threadIdx.x;
 #pragma unroll
@@ -80,11 +93,10 @@ __global__ void raster_tiles_kernel(const float* __restrict__ cdata,
   }
 }
 
-}  // namespace
-
-extern "C" int raster_tiles(const float* cdata, float* out, int nty,
-                            int ntx, int k1, int tile_h, void* stream) {
-  if (tile_h < 1 || tile_h > kMaxTileH || k1 < 1) {
+int launch(const float* cdata, float* out, int nviews, int nty, int ntx,
+           int k1, int tile_h, void* stream) {
+  if (tile_h < 1 || tile_h > kMaxTileH || k1 < 1 || nviews < 1 ||
+      nviews > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = static_cast<size_t>(k1) * 16 * sizeof(float);
@@ -94,8 +106,24 @@ extern "C" int raster_tiles(const float* cdata, float* out, int nty,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  raster_tiles_kernel<<<nty * ntx, kTileW, smem,
+  const dim3 grid(nty * ntx, 1, nviews);
+  raster_tiles_kernel<<<grid, kTileW, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       cdata, out, ntx, k1, tile_h);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// cdata (nty, ntx, k1, 16) -> out (nty*tile_h, ntx*128).
+extern "C" int raster_tiles(const float* cdata, float* out, int nty,
+                            int ntx, int k1, int tile_h, void* stream) {
+  return launch(cdata, out, 1, nty, ntx, k1, tile_h, stream);
+}
+
+// cdata (nviews, nty, ntx, k1, 16) -> out (nviews, nty*tile_h, ntx*128).
+extern "C" int raster_tiles_batch(const float* cdata, float* out,
+                                  int nviews, int nty, int ntx, int k1,
+                                  int tile_h, void* stream) {
+  return launch(cdata, out, nviews, nty, ntx, k1, tile_h, stream);
 }

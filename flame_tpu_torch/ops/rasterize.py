@@ -17,6 +17,10 @@ then integers, so the inside test is exact in float32 for images under
     highest-index overlapping triangles (overflow is dropped, and
     tile_candidates reports the largest count). eval_tiles is the plain
     version of the CUDA tile kernel (ops/raster_kernel.py).
+  * tile_candidates_batch + eval_tiles_batch: one triangle set from B
+    views with one shared binning pass over the union of each
+    triangle's per-view bboxes (pallas_raster.rasterize_batch). When no
+    tile overflows it gives each view the map the per-view form gives.
 """
 
 from typing import NamedTuple
@@ -28,17 +32,18 @@ NEG = -3.0e38  # finite -inf stand-in, as in the TPU kernel
 
 
 def _tri_setup(verts, tris, truncate: bool, corners=None):
-    """Edge-function coefficients a, b, c (T, 3), sign-normalized so
-    inside => all >= 0, and area2 (T,) = |2 * signed area|."""
+    """Edge-function coefficients a, b, c (..., T, 3), sign-normalized so
+    inside => all >= 0, and area2 (..., T) = |2 * signed area|. corners
+    (..., T, 3, 2) may carry leading view dimensions."""
     p = corners if corners is not None else verts[tris]
     if truncate:
         p = torch.trunc(p)
-    v0, v1, v2 = p[:, 0], p[:, 1], p[:, 2]
+    v0, v1, v2 = p[..., 0, :], p[..., 1, :], p[..., 2, :]
 
     def edge_coeffs(pa, pb):
-        a = pa[:, 1] - pb[:, 1]
-        b = pb[:, 0] - pa[:, 0]
-        c = pb[:, 1] * pa[:, 0] - pb[:, 0] * pa[:, 1]
+        a = pa[..., 1] - pb[..., 1]
+        b = pb[..., 0] - pa[..., 0]
+        c = pb[..., 1] * pa[..., 0] - pb[..., 0] * pa[..., 1]
         return a, b, c
 
     a0, b0, c0 = edge_coeffs(v1, v2)
@@ -47,9 +52,9 @@ def _tri_setup(verts, tris, truncate: bool, corners=None):
     a = torch.stack([a0, a1, a2], dim=-1)
     b = torch.stack([b0, b1, b2], dim=-1)
     c = torch.stack([c0, c1, c2], dim=-1)
-    area2 = (v1[:, 0] - v0[:, 0]) * (v2[:, 1] - v0[:, 1]) - \
-        (v1[:, 1] - v0[:, 1]) * (v2[:, 0] - v0[:, 0])
-    sign = torch.where(area2 < 0, -1.0, 1.0)[:, None]
+    area2 = (v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1]) - \
+        (v1[..., 1] - v0[..., 1]) * (v2[..., 0] - v0[..., 0])
+    sign = torch.where(area2 < 0, -1.0, 1.0)[..., None]
     return a * sign, b * sign, c * sign, torch.abs(area2)
 
 
@@ -82,34 +87,40 @@ def rasterize_bruteforce(verts, tris, vals, tri_valid, height: int,
 
 
 class TileCandidates(NamedTuple):
-    cdata: torch.Tensor  # (nty, ntx, K1, 16) rows [a0..2 b0..2 c0..2
+    cdata: torch.Tensor  # ([B,] nty, ntx, K1, 16) rows [a0..2 b0..2 c0..2
     # v0..2 inv_area valid 0 0], c in image coordinates; dead slots zero
     max_count: torch.Tensor  # () int, largest per-tile overlap count
 
 
-def tile_candidates(verts, tris, vals, tri_valid, height: int, width: int,
-                    truncate: bool = True, tile_h: int = 32,
-                    max_per_tile: int = 160) -> TileCandidates:
-    """Triangle setup and bbox binning to (tile_h, 128) tiles
-    (pallas_raster._setup_one and _bin_tiles of the JAX package)."""
-    dev = verts.device
-    T = tris.shape[0]
-    nty = -(-height // tile_h)
-    ntx = -(-width // TILE_W)
-    K1 = min(max_per_tile, T)
-    corners = verts[tris]  # (T, 3, 2)
-    a, b, c, area2 = _tri_setup(verts, tris, truncate, corners=corners)
-    tvals = vals[tris]
+def _packed_rows(verts, tris, vals, tri_valid, truncate: bool):
+    """Per-triangle (..., T, 16) rows, validity (..., T) and bboxes, for
+    verts (..., V, 2) and vals (..., V) with optional leading view
+    dimensions (pallas_raster._setup_one of the JAX package)."""
+    corners = verts[..., tris, :]  # (..., T, 3, 2)
+    a, b, c, area2 = _tri_setup(None, None, truncate, corners=corners)
+    tvals = vals[..., tris]
     p = torch.trunc(corners) if truncate else corners
-    xmin, xmax = torch.amin(p[..., 0], dim=1), torch.amax(p[..., 0], dim=1)
-    ymin, ymax = torch.amin(p[..., 1], dim=1), torch.amax(p[..., 1], dim=1)
+    bbox = (torch.amin(p[..., 0], dim=-1), torch.amax(p[..., 0], dim=-1),
+            torch.amin(p[..., 1], dim=-1), torch.amax(p[..., 1], dim=-1))
     ok = tri_valid & (area2 > 0)
     inv_area = torch.where(area2 > 0, 1.0 / torch.where(
         area2 > 0, area2, torch.ones_like(area2)), torch.zeros_like(area2))
-    packed = torch.cat([a, b, c, tvals, inv_area[:, None],
-                        ok[:, None].float(),
-                        torch.zeros((T, 2), device=dev)], dim=1)  # (T, 16)
+    packed = torch.cat([a, b, c, tvals, inv_area[..., None],
+                        ok[..., None].float(),
+                        torch.zeros(ok.shape + (2,), device=verts.device)],
+                       dim=-1)
+    return packed, ok, bbox
 
+
+def _bin_tiles(bbox, ok, height: int, width: int, tile_h: int, K1: int):
+    """Bbox binning to (tile_h, 128) tiles: (n_tiles, K1) candidate
+    indices (-1 for dead slots; the K1 highest overlapping indices) and
+    the largest per-tile overlap count."""
+    xmin, xmax, ymin, ymax = bbox
+    dev = ok.device
+    T = ok.shape[0]
+    nty = -(-height // tile_h)
+    ntx = -(-width // TILE_W)
     tids = torch.arange(nty * ntx, device=dev)
     ty = (tids // ntx).float() * tile_h
     tx = (tids % ntx).float() * TILE_W
@@ -119,10 +130,58 @@ def tile_candidates(verts, tris, vals, tri_valid, height: int, width: int,
                & (ymax[None, :] >= ty[:, None]) & ok[None, :])
     key = torch.where(overlap, torch.arange(T, device=dev)[None, :], -1)
     kvals = torch.topk(key, K1, dim=1).values  # (n_tiles, K1)
+    return kvals, overlap.sum(dim=1).max()
+
+
+def tile_candidates(verts, tris, vals, tri_valid, height: int, width: int,
+                    truncate: bool = True, tile_h: int = 32,
+                    max_per_tile: int = 160) -> TileCandidates:
+    """Triangle setup and bbox binning to (tile_h, 128) tiles
+    (pallas_raster._setup_one and _bin_tiles of the JAX package)."""
+    nty = -(-height // tile_h)
+    ntx = -(-width // TILE_W)
+    K1 = min(max_per_tile, tris.shape[0])
+    packed, ok, bbox = _packed_rows(verts, tris, vals, tri_valid, truncate)
+    kvals, max_count = _bin_tiles(bbox, ok, height, width, tile_h, K1)
     k_valid = kvals >= 0
     cdata = packed[torch.clamp(kvals, min=0)] * k_valid[..., None].float()
     return TileCandidates(cdata=cdata.reshape(nty, ntx, K1, 16),
-                          max_count=overlap.sum(dim=1).max())
+                          max_count=max_count)
+
+
+def tile_candidates_batch(verts, tris, vals, tri_valid, height: int,
+                          width: int, truncate: bool = True,
+                          tile_h: int = 32,
+                          max_per_tile: int = 192) -> TileCandidates:
+    """One triangle set seen from B views (verts (B, V, 2), vals (B, V),
+    tri_valid (B, T)) with ONE shared binning pass
+    (pallas_raster.rasterize_batch of the JAX package): each triangle's
+    bbox is the union of its bboxes over the views where it is valid, one
+    top-K picks each tile's K1 = min(max_per_tile, T) candidates, and
+    every view takes its own rows for them. cdata is (B, nty, ntx, K1,
+    16); a view where a candidate is invalid carries valid 0 in its row.
+    max_count is the largest per-tile count of the union bboxes."""
+    B = verts.shape[0]
+    nty = -(-height // tile_h)
+    ntx = -(-width // TILE_W)
+    K1 = min(max_per_tile, tris.shape[0])
+    packed, ok, (xmin, xmax, ymin, ymax) = _packed_rows(
+        verts, tris, vals, tri_valid, truncate)
+    # Views where the triangle is invalid must not widen its union.
+    big = 3e38
+
+    def lo(v):
+        return torch.amin(torch.where(ok, v, torch.full_like(v, big)), dim=0)
+
+    def hi(v):
+        return torch.amax(torch.where(ok, v, torch.full_like(v, -big)), dim=0)
+    kvals, max_count = _bin_tiles((lo(xmin), hi(xmax), lo(ymin), hi(ymax)),
+                                  ok.any(dim=0), height, width, tile_h, K1)
+    k_valid = kvals >= 0
+    cdata = packed[:, torch.clamp(kvals, min=0)] \
+        * k_valid[None, ..., None].float()
+    return TileCandidates(cdata=cdata.reshape(B, nty, ntx, K1, 16),
+                          max_count=max_count)
 
 
 def eval_tiles(cdata: torch.Tensor, tile_h: int = 32) -> torch.Tensor:
@@ -157,9 +216,15 @@ def eval_tiles(cdata: torch.Tensor, tile_h: int = 32) -> torch.Tensor:
     return torch.cat(rows, dim=0)
 
 
+def eval_tiles_batch(cdata: torch.Tensor, tile_h: int = 32) -> torch.Tensor:
+    """Plain version of the batched tile kernel: (B, nty, ntx, K1, 16)
+    -> (B, nty*tile_h, ntx*128), each view as eval_tiles."""
+    return torch.stack([eval_tiles(cd, tile_h) for cd in cdata])
+
+
 def finish(out: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Crop the tile grid to (H, W); NaN where nothing covered."""
-    out = out[:height, :width]
+    """Crop the tile grid(s) to ([B,] H, W); NaN where nothing covered."""
+    out = out[..., :height, :width]
     return torch.where(out <= NEG * 0.5, torch.full_like(out, float("nan")),
                        out)
 
@@ -171,3 +236,12 @@ def rasterize(verts, tris, vals, tri_valid, height: int, width: int,
     cand = tile_candidates(verts, tris, vals, tri_valid, height, width,
                            truncate, tile_h, max_per_tile)
     return finish(eval_tiles(cand.cdata, tile_h), height, width)
+
+
+def rasterize_batch(verts, tris, vals, tri_valid, height: int, width: int,
+                    truncate: bool = True, tile_h: int = 32,
+                    max_per_tile: int = 192) -> torch.Tensor:
+    """The batched tiled rasterizer in plain torch: (B, H, W)."""
+    cand = tile_candidates_batch(verts, tris, vals, tri_valid, height,
+                                 width, truncate, tile_h, max_per_tile)
+    return finish(eval_tiles_batch(cand.cdata, tile_h), height, width)

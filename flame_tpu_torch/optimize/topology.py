@@ -116,11 +116,16 @@ def from_edges(edges_in: torch.Tensor, n_edges: int, pos: torch.Tensor,
     prev = prev_edges.long()
     prev_codes = torch.where(prev_edge_mask, prev[:, 0] * v_cap + prev[:, 1],
                              big)
-    posn = torch.clamp(torch.searchsorted(prev_codes, codes), max=e_cap - 1)
-    match = (prev_codes[posn] == codes) & edge_mask
+    # The previous mask has holes wherever an edge lost a member vertex
+    # (async topology lags membership), so its codes are sorted only
+    # after the holes move to the end. Their duals are zero (unslot).
+    prev_sorted, prev_order = torch.sort(prev_codes)
+    posn = torch.clamp(torch.searchsorted(prev_sorted, codes), max=e_cap - 1)
+    match = (prev_sorted[posn] == codes) & edge_mask
+    src = prev_order[posn]
 
     def carry(q):
-        return torch.where(match, q[posn], torch.zeros_like(q))
+        return torch.where(match, q[src], torch.zeros_like(q))
 
     inc_edge, inc_sign, src_slot = _build_incidence_from_ranks(
         lo_e, hi_e, edge_mask, ranks, e_cap, v_cap, degree)

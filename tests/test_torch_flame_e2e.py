@@ -130,23 +130,35 @@ def test_mesh_and_stats(runs):
 
 
 def test_unported_paths_raise():
+    """Bundle adjustment and automatic poseframes are the paths left; the
+    throughput path (async topology, batching, comparison-poseframe
+    scoring) constructs."""
     K, Kinv = _K()
-    for p in (flame_tpu_torch.Params(),  # photo_error_num_pfs=30
-              flame_tpu_torch.Params(photo_error_num_pfs=0, do_ba=True),
-              flame_tpu_torch.Params(photo_error_num_pfs=0,
-                                     solver=flame_tpu_torch.SolverParams(
-                                         async_topology=True))):
+    for p in (flame_tpu_torch.Params(do_ba=True),
+              flame_tpu_torch.Params(auto_poseframe=True)):
         with pytest.raises(NotImplementedError):
             flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv), p,
                                   device="cpu")
+    flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                          flame_tpu_torch.Params(
+                              solver=flame_tpu_torch.SolverParams(
+                                  async_topology=True, frame_batch=8)),
+                          device="cpu")
+
+
+def test_full_poseframe_slots_evict_the_oldest():
+    K, Kinv = _K()
     p = convert.params_from_dict(dataclasses.asdict(make_params()))
     fl = flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
                                p.replace(poseframe_capacity=2), device="cpu")
     pose = (np.array([1.0, 0, 0, 0]), np.zeros(3))
-    fl.update(0.0, 0, pose, render(0.0), True)
-    fl.update(0.1, 1, pose, render(0.0), True)
-    with pytest.raises(NotImplementedError):  # no eviction in the port
-        fl.update(0.2, 2, pose, render(0.0), True)
+    for i in range(3):
+        fl.update(0.1 * i, i, pose, render(0.0), True)
+    assert sorted(fl._pf_slot_by_id) == [1, 2]
+    assert fl.stats.stats("pf_evictions") == 1
+    assert sorted(fl._stack.frame_id.tolist()) == [1, 2]
+    with pytest.raises(ValueError):  # the current poseframe must stay
+        fl.prune_poseframes([1])
 
 
 def test_frame_insert_rejects_bad_slot():

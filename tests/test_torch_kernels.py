@@ -6,8 +6,9 @@ jax, run them past tests/conftest.py (which imports jax) with
 Tolerances: the smoother kernel sums a vertex's slots in another order
 than torch (rtol 2e-4 / atol 5e-5 after 40 iterations, the
 tests/test_pallas_smoother.py bound), and both copies of every edge's
-duals stay bit-equal. The raster kernel's inside test is exact on
-truncated vertices (identical NaN masks) and its values agree to 1e-5.
+duals stay bit-equal. The raster kernels' inside test (one view, and B
+views after one shared binning) is exact on truncated vertices
+(identical NaN masks) and their values agree to 1e-5.
 """
 
 import numpy as np
@@ -125,6 +126,35 @@ def test_raster_kernel_matches_plain(graph):
     assert torch.equal(torch.isnan(ref), torch.isnan(out_k))
 
 
+def test_raster_batch_kernel_matches_plain(graph):
+    """K2b: B=4 views of one mesh (shifted and scaled per view, per-view
+    values, view-specific invalid triangles) with one shared binning."""
+    g, tris = graph
+    dev = tris.device
+    B = 4
+    verts = torch.stack([g.pos * (1.0 + 0.01 * b)
+                         + torch.tensor([3.0 * b, -2.0 * b], device=dev)
+                         for b in range(B)])
+    vals = torch.rand(B, V, device=dev) + 0.5
+    valid = torch.ones(B, tris.shape[0], dtype=torch.bool, device=dev)
+    valid[1, :50] = False
+    cand = rasterize.tile_candidates_batch(verts, tris, vals, valid, H, W,
+                                           max_per_tile=512)
+    assert int(cand.max_count) <= 512
+    before = _kernels.LAUNCHES["raster_tiles_batch"]
+    out_k = rasterize.finish(
+        raster_kernel.rasterize_tiles_batch(cand.cdata.contiguous()), H, W)
+    assert _kernels.LAUNCHES["raster_tiles_batch"] == before + 1
+    out_p = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata), H, W)
+    assert torch.equal(torch.isnan(out_k), torch.isnan(out_p))
+    m = ~torch.isnan(out_k)
+    torch.testing.assert_close(out_k[m], out_p[m], rtol=0, atol=1e-5)
+    for b in range(B):
+        ref = rasterize.rasterize_bruteforce(verts[b], tris, vals[b],
+                                             valid[b], H, W)
+        assert torch.equal(torch.isnan(ref), torch.isnan(out_k[b]))
+
+
 def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):
     g, tris = graph
 
@@ -132,10 +162,14 @@ def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):
         raise AssertionError("plain path taken for CUDA tensors")
     monkeypatch.setattr(nltgv2, "iterate_plain", forbidden)
     monkeypatch.setattr(rasterize, "eval_tiles", forbidden)
+    monkeypatch.setattr(rasterize, "eval_tiles_batch", forbidden)
     smoother_kernel.smooth(RegularizerParams(), g, 3)
     vals = torch.ones(V, device=tris.device)
     valid = torch.ones(tris.shape[0], dtype=torch.bool, device=tris.device)
     raster_kernel.rasterize(g.pos, tris, vals, valid, H, W)
+    raster_kernel.rasterize_batch(g.pos[None].repeat(2, 1, 1), tris,
+                                  vals[None].repeat(2, 1),
+                                  valid[None].repeat(2, 1), H, W)
     torch.cuda.synchronize()
 
 
@@ -148,3 +182,6 @@ def test_wrappers_reject_bad_inputs(graph):
     with pytest.raises(ValueError):
         raster_kernel.rasterize_tiles(
             torch.zeros((2, 2, 8, 15), device=g.x.device))
+    with pytest.raises(ValueError):  # a single view's 4-d candidates
+        raster_kernel.rasterize_tiles_batch(
+            torch.zeros((2, 2, 8, 16), device=g.x.device))
