@@ -17,6 +17,10 @@ Phases (any failure raises and the script exits non-zero):
      on 8 views of that mesh (shifted and scaled per view, per-view
      values, one view with invalidated triangles) after one shared
      binning pass;
+  5b. the halo smoother kernel (K3) on that graph in the RCM-banded
+     layout (reach 3, 40 iterations) at 1, 2, 4 and 8 partitions of the
+     card: against its plain version, bit-equal across the partition
+     counts (the strips arrive right) and with bit-equal dual copies;
   6. the synchronous path: flame_tpu_torch.Flame at 640x480 with 4096
      features on a synthetic textured plane at 5 m, 30 frames, every
      second one a poseframe; K1 and K2 must run on every frame that
@@ -28,9 +32,16 @@ Phases (any failure raises and the script exits non-zero):
      ("resident") and once with numpy frames ("host"); K2b must run once
      per batched step, K1 40 times per post-Delaunay step, at least one
      poseframe must be evicted, and the final map must meet the bounds
-     of phase 6.
+     of phase 6;
+  8. the partitioned smoother path: ShardedFlame with
+     smoother="pallas_halo" on make_mesh(4) (4 partitions of the card),
+     on phase 6's frames (its dense map within a median 1e-4 of phase
+     6's) and on phase 7's configuration with resident frames; K3 once
+     and K1 never per post-Delaunay step, with the bounds of phase 6.
 Each path runs with the launch counts set to 0 just before it and read
-just after. The last lines are the kernels' JSON summary, the
+just after. The last lines are the kernels' JSON summary (with each
+kernel's bound: the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s fp32, from this run's inputs), the
 nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
@@ -47,6 +58,53 @@ import torch
 SEED = 0
 K1_TOL = dict(rtol=2e-4, atol=5e-5)
 K2_ATOL = 1e-5
+K3_REACH = 3  # bench.py's pallas_reach
+K3_PARTS = (1, 2, 4, 8)
+MESH_PARTS = 4  # partitions of the sharded path
+
+# Published H100 SXM peaks (NVIDIA data sheet, at 700 W).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
+# Operations of one smoother iteration, counted from the kernels' code:
+# per live slot the dual step (K1 5, three ascents with projection 5 + 6
+# + 6) and the primal contributions with their sums (3 + 6 + 6); per
+# member vertex the sums, proxL1, clip and the three extragradients.
+SLOT_OPS = 37
+VERTEX_OPS = 21
+# Raster: per (valid candidate, tile pixel) three edge functions and the
+# inside test; per covered pixel the value and the max.
+RASTER_PAIR_OPS = 15
+RASTER_PIXEL_OPS = 6
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the fp32 rate, whichever is larger."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def smoother_bound(V, D, live_slots, members, n_iters, slot_words):
+    """slot_words (R * D or V * D tables read or written once) and 15
+    vertex words (9 in, 6 out) of 4 bytes; the operations of this run's
+    live slots and member vertices."""
+    nbytes = 4 * (slot_words * V * D + 15 * V)
+    ops = n_iters * (SLOT_OPS * live_slots + VERTEX_OPS * members)
+    return bound(nbytes, ops)
+
+
+def raster_bound(cdata, out):
+    """cdata read once, the map written once; the operations of its valid
+    candidates over their tiles' pixels and of its covered pixels."""
+    tile_px = out.shape[-2] // cdata.shape[-4] * out.shape[-1] \
+        // cdata.shape[-3]
+    pairs = int((cdata[..., 13] > 0).sum()) * tile_px
+    covered = int((out > -1e38).sum())
+    return bound(4 * (cdata.numel() + out.numel()),
+                 RASTER_PAIR_OPS * pairs + RASTER_PIXEL_OPS * covered)
 
 
 def _cuda_ms(fn, reps):
@@ -100,7 +158,7 @@ def build():
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(parallel nvcc {_kernels.BUILD_INFO['seconds']:.2f} s) -> {libs}")
     for line in _kernels.BUILD_INFO["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             print("  ptxas:", line.strip())
 
 
@@ -185,7 +243,11 @@ def check_smoother(g, n_iters=40):
           f"{n_pairs} dual pairs bit-equal")
     print(f"K1 time: kernel {1000 * k_ms / n_iters:.2f} us/iter, plain "
           f"torch {1000 * p_ms / n_iters:.2f} us/iter")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    b = smoother_bound(V, D, int((tables.sgn != 0).sum()),
+                       int(g.vtx_mask.sum()), n_iters, 13)
+    print(f"K1 bound: {1000 * b['bound_ms']:.3f} us for {n_iters} "
+          f"iterations ({b['bound_by']})")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
 
 
 def check_raster(g, tris_np, W=640, H=480):
@@ -222,7 +284,9 @@ def check_raster(g, tris_np, W=640, H=480):
           f"{raster_kernel.MAX_PER_TILE}")
     print(f"K2 time: kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms; "
           f"with setup and binning {e2e_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    b = raster_bound(cd, raster_kernel.rasterize_tiles(cd))
+    print(f"K2 bound: {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
 
 
 def check_raster_batch(g, tris_np, W=640, H=480, B=8):
@@ -266,7 +330,101 @@ def check_raster_batch(g, tris_np, W=640, H=480, B=8):
           f"{int(cand.max_count)} of {raster_kernel.MAX_PER_TILE_BATCH}")
     print(f"K2b time: kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms; "
           f"with setup and binning {e2e_ms:.4f} ms (all {B} views)")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    b = raster_bound(cd, raster_kernel.rasterize_tiles_batch(cd))
+    print(f"K2b bound: {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
+
+
+def banded_layout(g, D=20, reach=K3_REACH):
+    """make_graph's graph in the RCM-banded layout (ranks ordered by edge
+    length, as Flame orders them), and the flat slot of each edge's dst
+    dual copy."""
+    from flame_tpu_torch.optimize import smoother_kernel
+    V, E = g.x.shape[0], g.q1.shape[0]
+    dev = g.x.device
+    n_e = int(g.edge_mask.sum())
+    edges = g.edges[:n_e].cpu().numpy()
+    pos = g.pos.cpu().numpy()
+    d = pos[edges[:, 0]] - pos[edges[:, 1]]
+    perm = smoother_kernel.rcm_order(edges, n_e, V,
+                                     g.vtx_mask.cpu().numpy())
+    inv = np.empty(V, np.int32)
+    inv[perm] = np.arange(V, dtype=np.int32)
+    ranks = smoother_kernel.perm_edge_ranks(edges, n_e, inv, E, D, reach,
+                                            tie=np.sqrt((d * d).sum(1)))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    lay = smoother_kernel.build_layout(g, t(perm), t(inv), t(ranks), D,
+                                       reach)
+    hi_p = t(inv.astype(np.int64))[g.edges[:, 1]]
+    dst = ((hi_p // 128) * D + t(ranks[:, 1].astype(np.int64))) * 128 \
+        + hi_p % 128
+    return lay, dst, int((ranks[:n_e, 0] == 255).sum())
+
+
+def check_halo(g, k1, n_iters=40, reach=K3_REACH):
+    """K3 at each partition count against its plain version, bit-equal
+    across the counts, bit-equal dual copies; times per iteration."""
+    from flame_tpu_torch import RegularizerParams
+    from flame_tpu_torch.parallel import halo_kernel
+    p = RegularizerParams()
+    D = g.inc_edge.shape[1]
+    V = g.x.shape[0]
+    lay, dst, n_dropped = banded_layout(g, D, reach)
+    outs, errs = {}, {}
+    for n in K3_PARTS:
+        out_k = halo_kernel.iterate(p, n_iters, D, reach, n, lay.vtx,
+                                    lay.slots)
+        out_p = halo_kernel.iterate_plain(p, n_iters, D, reach, n, lay.vtx,
+                                          lay.slots)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b in zip(("x", "w1", "w2", "x_bar", "w1_bar", "w2_bar",
+                               "q1", "q2", "q3"), out_k, out_p):
+            torch.testing.assert_close(a, b, **K1_TOL,
+                                       msg=f"halo n={n} {name}")
+            err = max(err, (a - b).abs().max().item())
+        outs[n], errs[n] = out_k, err
+    for n in K3_PARTS[1:]:
+        for k, (a, b) in enumerate(zip(outs[n], outs[1])):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"halo output {k} at n={n} differs from n=1 at "
+                    f"{int((a != b).sum())} entries")
+    alive = lay.alive
+    for q in outs[1][6:]:
+        qf = q.reshape(-1)
+        s, d = qf[lay.src_slot[alive]], qf[dst[alive]]
+        if not torch.equal(s, d):
+            raise AssertionError(f"halo dual copies differ: "
+                                 f"{int((s != d).sum())} of "
+                                 f"{int(alive.sum())}")
+    k_ms, p_ms = {}, {}
+    for n in K3_PARTS:
+        k_ms[n] = _cuda_ms(lambda: halo_kernel.iterate(
+            p, n_iters, D, reach, n, lay.vtx, lay.slots), 20)
+        p_ms[n] = _cuda_ms(lambda: halo_kernel.iterate_plain(
+            p, n_iters, D, reach, n, lay.vtx, lay.slots), 3)
+    R = V // 128
+    print(f"K3 halo_smoother V={V} D={D} R={R} reach={reach} "
+          f"iters={n_iters} live edges {int(alive.sum())} "
+          f"(band/degree dropped {n_dropped}): max|kernel-plain| "
+          + ", ".join(f"n={n} {errs[n]:.3g}" for n in K3_PARTS)
+          + f" (rtol {K1_TOL['rtol']}, atol {K1_TOL['atol']}); outputs at "
+          f"n={K3_PARTS[1:]} bit-equal to n=1; {int(alive.sum())} dual "
+          f"pairs bit-equal")
+    print("K3 time us/iter (one launch for all iterations, wrapper "
+          "included): "
+          + ", ".join(f"n={n} kernel {1000 * k_ms[n] / n_iters:.2f} plain "
+                      f"{1000 * p_ms[n] / n_iters:.2f}" for n in K3_PARTS)
+          + f"; K1 kernel {1000 * k1['ms'] / n_iters:.2f}, plain "
+          f"{1000 * k1['plain_ms'] / n_iters:.2f}")
+    b = smoother_bound(V, D, 2 * int(alive.sum()), int(g.vtx_mask.sum()),
+                       n_iters, 14)
+    print(f"K3 bound: {1000 * b['bound_ms']:.3f} us for {n_iters} "
+          f"iterations ({b['bound_by']})")
+    n = MESH_PARTS
+    return dict(max_abs_err=max(errs.values()), ms=k_ms[n], plain_ms=p_ms[n],
+                **b)
 
 
 def bench_params():
@@ -279,7 +437,8 @@ def bench_params():
         idepth_init=0.05, min_baseline=0.01, photo_error_num_pfs=0,
         detection=DetectionParams(win_size=16),
         solver=SolverParams(max_vertex_degree=20, n_iters_per_frame=40,
-                            async_topology=False, frame_batch=1),
+                            pallas_reach=K3_REACH, async_topology=False,
+                            frame_batch=1),
         do_ba=False)
 
 
@@ -290,9 +449,40 @@ def throughput_params():
     from flame_tpu_torch import SolverParams
     p = bench_params()
     return p.replace(photo_error_num_pfs=30, solver=SolverParams(
-        max_vertex_degree=20, n_iters_per_frame=40, async_topology=True,
-        frame_batch=8, topology_lag=2, join_age=24,
+        max_vertex_degree=20, n_iters_per_frame=40, pallas_reach=K3_REACH,
+        async_topology=True, frame_batch=8, topology_lag=2, join_age=24,
         max_consecutive_sheds=8))
+
+
+def with_smoother(params, smoother):
+    import dataclasses
+    return params.replace(solver=dataclasses.replace(params.solver,
+                                                     smoother=smoother))
+
+
+def make_flame(K, Kinv, params, sharded):
+    """Flame, or with sharded ShardedFlame with smoother="pallas_halo" on
+    MESH_PARTS partitions of the card."""
+    import flame_tpu_torch
+    from flame_tpu_torch.parallel import sharding
+    from flame_tpu_torch.parallel.orchestrator import ShardedFlame
+    if sharded:
+        return ShardedFlame(W, H, K, Kinv,
+                            with_smoother(params, "pallas_halo"),
+                            mesh=sharding.make_mesh(MESH_PARTS))
+    return flame_tpu_torch.Flame(W, H, K, Kinv, params)
+
+
+def smoother_launches(n_iters, sharded):
+    """Launches per post-Delaunay step: {kernel: count}."""
+    if sharded:
+        return {"halo_smoother": 1, "nltgv2_smoother": 0}
+    return {"nltgv2_smoother": n_iters, "halo_smoother": 0}
+
+
+def drop_counts(fl):
+    return ", ".join(f"{k} {int(fl.stats.stats(k))}" for k in (
+        "edges_rank_dropped", "edges_band_dropped", "edges_degree_dropped"))
 
 
 W, H = 640, 480
@@ -344,13 +534,14 @@ def stage_medians(fl, names, skip):
     return ", ".join(parts)
 
 
-def main_path(smi, n_frames=30):
-    import flame_tpu_torch
+def main_path(smi, n_frames=30, sharded=False, ref_map=None):
+    """The synchronous path; sharded: through ShardedFlame with K3, its
+    final map held to ref_map (the vertex-smoother run's)."""
     from flame_tpu_torch import _kernels
     K, Kinv, frames = scene(n_frames)
-    fl = flame_tpu_torch.Flame(W, H, K, Kinv, bench_params(),
-                               device=torch.device("cuda"))
+    fl = make_flame(K, Kinv, bench_params(), sharded)
     n_iters = fl.params.solver.n_iters_per_frame
+    per_step = smoother_launches(n_iters, sharded)
     _kernels.reset_launches()
     frame_ms, meshed = [], 0
     for i in range(n_frames):
@@ -362,21 +553,32 @@ def main_path(smi, n_frames=30):
         if ok:
             meshed += 1
             frame_ms.append(dt)
-            ds = _kernels.LAUNCHES["nltgv2_smoother"] \
-                - before["nltgv2_smoother"]
+            ds = {k: _kernels.LAUNCHES[k] - before[k] for k in per_step}
             dr = _kernels.LAUNCHES["raster_tiles"] - before["raster_tiles"]
-            if ds != n_iters or dr < 1:
+            if ds != per_step or dr < 1:
                 raise AssertionError(f"frame {i}: smoother launches {ds} "
-                                     f"(want {n_iters}), raster {dr}")
+                                     f"(want {per_step}), raster {dr}")
     launches = dict(_kernels.LAUNCHES)
     if meshed < n_frames // 2:
         raise AssertionError(f"only {meshed} of {n_frames} frames meshed")
-    for name in ("nltgv2_smoother", "raster_tiles"):
+    for name in [k for k, v in per_step.items() if v] + ["raster_tiles"]:
         if launches[name] < 1:
             raise AssertionError(f"{name} never ran on the synchronous path")
 
-    check_map(fl, f"main path 640x480, 4096 features, {n_frames} frames "
+    label = (f"sharded main path (pallas_halo, {MESH_PARTS} partitions)"
+             if sharded else "main path")
+    check_map(fl, f"{label} 640x480, 4096 features, {n_frames} frames "
                   f"({meshed} meshed)")
+    idm = fl.get_inverse_depth_map()
+    if ref_map is not None:
+        both = ~np.isnan(idm) & ~np.isnan(ref_map)
+        diff = float(np.median(np.abs(idm[both] - ref_map[both])))
+        print(f"{label}: median |idepth - vertex-smoother idepth| {diff:.3g}"
+              f" (< 1e-4) over {both.mean():.4f} of the pixels; "
+              f"{drop_counts(fl)}")
+        if not (diff < 1e-4 and both.mean() > 0.5):
+            raise AssertionError(f"{label}: map departs from the vertex "
+                                 f"smoother's run")
     from flame_tpu_torch.ops import raster_kernel, rasterize
     g, tris = fl._graph, fl._tris
     tri_mask = (torch.arange(tris.shape[0], device=tris.device)
@@ -387,14 +589,14 @@ def main_path(smi, n_frames=30):
           f"{int(cand.max_count)} of max_per_tile "
           f"{raster_kernel.MAX_PER_TILE}")
     skip = 4  # the first meshed frames include one-time allocations
-    print(f"main path median ms per stage (CUDA events) on {smi}: "
+    print(f"{label} median ms per stage (CUDA events) on {smi}: "
           + stage_medians(fl, ("frame_creation", "update_idepths",
                                "triangulate", "sync_graph", "smoother",
                                "raster"), skip))
-    print(f"main path median frame {np.median(frame_ms[skip:]):.3f} ms "
+    print(f"{label} median frame {np.median(frame_ms[skip:]):.3f} ms "
           f"(host wall incl. synchronize, frames {skip + 1}-{meshed} of "
           f"the meshed) on {smi}; launches {launches}")
-    return launches
+    return launches, idm
 
 
 def batch_overflow(fl, first_frame):
@@ -427,18 +629,17 @@ def batch_overflow(fl, first_frame):
     return int(cand.max_count), lost
 
 
-def throughput_path(smi, mode, n_frames=96):
+def throughput_path(smi, mode, n_frames=96, sharded=False):
     """The batched async path over n_frames with 'resident' (uint8 on the
-    card, staged before the run) or 'host' (numpy uint8) frames."""
-    import flame_tpu_torch
+    card, staged before the run) or 'host' (numpy uint8) frames;
+    sharded: through ShardedFlame with K3."""
     from flame_tpu_torch import _kernels
     dev = torch.device("cuda")
     K, Kinv, frames = scene(n_frames)
     if mode == "resident":
         frames = [torch.as_tensor(f, device=dev) for f in frames]
         torch.cuda.synchronize()
-    fl = flame_tpu_torch.Flame(W, H, K, Kinv, throughput_params(),
-                               device=dev)
+    fl = make_flame(K, Kinv, throughput_params(), sharded)
     p = fl.params
     B = p.solver.frame_batch
     _kernels.reset_launches()
@@ -455,8 +656,10 @@ def throughput_path(smi, mode, n_frames=96):
             t_group = None
         elif not fl._batch_pending:  # a frame of the single path
             t_group = None
-    label = (f"throughput path ({mode} frames) 640x480, 4096 features, "
-             f"{n_frames} frames")
+    label = (f"{'sharded ' if sharded else ''}throughput path ({mode} "
+             "frames"
+             + (f", pallas_halo, {MESH_PARTS} partitions" if sharded else "")
+             + f") 640x480, 4096 features, {n_frames} frames")
     check_map(fl, label)  # flushes the frames still buffered
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
@@ -470,12 +673,13 @@ def throughput_path(smi, mode, n_frames=96):
         raise AssertionError(f"{mode}: raster_tiles_batch launches "
                              f"{launches['raster_tiles_batch']} vs "
                              f"{fl._dispatches} batched steps")
-    if launches["nltgv2_smoother"] != n_iters * n_post \
+    per_step = smoother_launches(n_iters, sharded)
+    if any(launches[k] != v * n_post for k, v in per_step.items()) \
             or launches["raster_tiles"] != n_post or n_post < 1:
         raise AssertionError(f"{mode}: smoother launches "
-                             f"{launches['nltgv2_smoother']}, raster "
-                             f"{launches['raster_tiles']} for {n_post} "
-                             f"post-Delaunay steps")
+                             f"{ {k: launches[k] for k in per_step} }, "
+                             f"raster {launches['raster_tiles']} for "
+                             f"{n_post} post-Delaunay steps")
     if evictions < 1:
         raise AssertionError(f"{mode}: no poseframe was evicted")
     skip = 2  # the first batches include one-time allocations
@@ -484,7 +688,7 @@ def throughput_path(smi, mode, n_frames=96):
     print(f"{label}: {fl._dispatches} batched steps, {n_post} post-Delaunay "
           f"steps, {evictions} poseframe evictions, "
           f"{int(fl.stats.stats('packed_sheds'))} shed snapshots; "
-          f"launches {launches}; run {run_s:.2f} s")
+          f"launches {launches}; run {run_s:.2f} s; {drop_counts(fl)}")
     run_max = fl.failure_stats()["raster_max_union_candidates"]
     nxt_max, lost = batch_overflow(fl, n_frames)
     steps = [int(c) for c in fl._raster_union]
@@ -512,8 +716,12 @@ def main():
     k1 = check_smoother(g)
     k2 = check_raster(g, tris)
     k2b = check_raster_batch(g, tris)
-    runs = [main_path(smi)] + [throughput_path(smi, mode)
-                               for mode in ("resident", "host")]
+    k3 = check_halo(g, k1)
+    sync_launches, vertex_map = main_path(smi)
+    sharded_launches, _ = main_path(smi, sharded=True, ref_map=vertex_map)
+    runs = [sync_launches, sharded_launches] + [
+        throughput_path(smi, mode) for mode in ("resident", "host")] + [
+        throughput_path(smi, "resident", sharded=True)]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",
@@ -528,6 +736,10 @@ def main():
              source="flame_tpu_torch/csrc/raster.cu",
              replaces="flame_tpu/ops/pallas_raster.py:233",
              launches=launches["raster_tiles_batch"], **k2b),
+        dict(name="halo_smoother", route="cuda",
+             source="flame_tpu_torch/csrc/halo_smoother.cu",
+             replaces="flame_tpu/parallel/pallas_halo.py:269",
+             launches=launches["halo_smoother"], **k3),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -1,6 +1,7 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each kernel source (csrc/nltgv2_smoother.cu, csrc/raster.cu) is compiled
+Each kernel source (csrc/nltgv2_smoother.cu, csrc/raster.cu,
+csrc/halo_smoother.cu) is compiled
 by its own nvcc process for sm_90a into a shared library with a plain C
 interface, bound with ctypes; the processes start together, so the build
 takes as long as the slowest source. The build runs at first use, into
@@ -25,12 +26,13 @@ import types
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("nltgv2_smoother.cu", "raster.cu")
+SOURCES = ("nltgv2_smoother.cu", "raster.cu", "halo_smoother.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"nltgv2_smoother": 0, "raster_tiles": 0, "raster_tiles_batch": 0}
+LAUNCHES = {"nltgv2_smoother": 0, "raster_tiles": 0, "raster_tiles_batch": 0,
+            "halo_smoother": 0}
 
 # Filled by load(): wall seconds of the parallel build (0 when every
 # library was already built), the compiler's register/shared-memory
@@ -103,6 +105,7 @@ def load() -> types.SimpleNamespace:
             _build(missing)
         smoother = ctypes.CDLL(paths["nltgv2_smoother.cu"])
         raster = ctypes.CDLL(paths["raster.cu"])
+        halo = ctypes.CDLL(paths["halo_smoother.cu"])
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         smoother.nltgv2_iterate.restype = I
         smoother.nltgv2_iterate.argtypes = (
@@ -114,11 +117,18 @@ def load() -> types.SimpleNamespace:
         raster.raster_tiles.argtypes = [P, P, I, I, I, I, P]
         raster.raster_tiles_batch.restype = I
         raster.raster_tiles_batch.argtypes = [P, P, I, I, I, I, I, P]
+        halo.halo_smoother.restype = I
+        halo.halo_smoother.argtypes = (
+            [P] * 9           # x w1 w2 xb w1b w2b (in/out), data weight vmask
+            + [P] * 8         # nbr rowflag sdx sdy sal sbe sgn srcf
+            + [P] * 5         # q1 q2 q3 (in/out), rx, flags
+            + [I] * 5 + [F] * 6 + [P])
         BUILD_INFO["libraries"] = list(paths.values())
         _lib = types.SimpleNamespace(
             nltgv2_iterate=smoother.nltgv2_iterate,
             raster_tiles=raster.raster_tiles,
-            raster_tiles_batch=raster.raster_tiles_batch)
+            raster_tiles_batch=raster.raster_tiles_batch,
+            halo_smoother=halo.halo_smoother)
         return _lib
 
 

@@ -19,7 +19,7 @@ from flame_tpu_torch.core.pipeline import CurrFeatures, FeatureState
 from flame_tpu_torch.optimize.nltgv2 import GraphState
 
 # Fields of the JAX Params that the port leaves out (TPU-only knobs).
-DROPPED_FIELDS = {"max_topology_staleness", "pallas_reach"}
+DROPPED_FIELDS = {"max_topology_staleness"}
 
 
 def _build(cls, d: Mapping):

@@ -26,6 +26,7 @@ from flame_tpu_torch.ops import raster_kernel
 from flame_tpu_torch.ops import rasterize as raster
 from flame_tpu_torch.optimize import nltgv2, smoother_kernel
 from flame_tpu_torch.optimize import topology as topo_mod
+from flame_tpu_torch.parallel import halo, halo_kernel, sharding
 from flame_tpu_torch.params import Params
 from flame_tpu_torch.stereo import filter as idfilter
 from flame_tpu_torch.stereo import line_stereo, meas_model
@@ -476,27 +477,83 @@ def _no_timer(name):
     return contextlib.nullcontext()
 
 
+SMOOTHERS = ("vertex", "pallas", "halo", "pallas_halo")
+RANK_LAYOUT_SMOOTHERS = ("pallas", "halo", "pallas_halo")
+
+
+def resolve_smoother(params: Params) -> str:
+    """The smoother this configuration runs: "auto" is the vertex-centric
+    kernel K1 (the JAX package picks its banded Pallas kernel on a TPU
+    only); an explicit mode is honoured as given."""
+    mode = params.solver.smoother
+    if mode == "auto":
+        return "vertex"
+    if mode not in SMOOTHERS:
+        raise ValueError(f"unknown smoother {mode!r}; one of "
+                         f"{('auto',) + SMOOTHERS}")
+    return mode
+
+
+def _smooth(params: Params, graph: nltgv2.GraphState, smoother: str,
+            edge_ranks, perm, mesh) -> nltgv2.GraphState:
+    """n_iters_per_frame iterations of the configured smoother. The
+    rank-layout modes need the RCM perm (and "halo" / "pallas_halo" a
+    mesh): without them the graph holds no incidence tables, so falling
+    back to the vertex smoother would smooth against empty tables."""
+    rp = params.rparams
+    n_iters = params.solver.n_iters_per_frame
+    if smoother == "vertex":
+        return smoother_kernel.smooth(rp, graph, n_iters)
+    if perm is None or (smoother != "pallas" and mesh is None):
+        missing = "perm (the RCM order of the topology)" if perm is None \
+            else "mesh"
+        raise ValueError(f"smoother={smoother!r} needs {missing}")
+    V = graph.x.shape[0]
+    perm = perm.long()
+    inv_perm = torch.empty_like(perm)
+    inv_perm[perm] = torch.arange(V, device=perm.device)
+    D = params.solver.max_vertex_degree
+    reach = params.solver.pallas_reach
+    if smoother == "halo":
+        return halo.halo_smooth(rp, graph, perm, inv_perm, edge_ranks,
+                                n_iters, D, mesh,
+                                halo=halo.strip_width(V, mesh.size, reach))
+    if smoother == "pallas":  # the banded kernel with one partition
+        mesh = sharding.make_mesh(1, graph.x.device)
+    return halo_kernel.smooth_sharded(rp, graph, perm, inv_perm, edge_ranks,
+                                      n_iters, D, mesh, reach=reach)
+
+
 def _post_delaunay_inner(params: Params, K, Kinv, graph: nltgv2.GraphState,
                          member, curr: CurrFeatures, pose_prev, pose_new,
                          graph_scale, width: int, height: int,
                          prev_idepthmap=None, tris=None, n_tris: int = 0,
                          edges=None, n_edges: int = 0, edge_ranks=None,
-                         timed=None):
+                         perm=None, mesh=None, timed=None):
     """Everything between host Delaunay and the next frame: prev->new
     geometry, topology with dual carry, graph sync, the smoother, mesh
     outputs and coverage. tris (T, 3), edges (E, 2) and edge_ranks (E, 2)
-    are padded to capacity; n_tris/n_edges count the real rows.
-    timed: optional context-manager factory, called with "smoother" and
-    "raster". Returns (graph', vtx_idepths, normals, tri_validity,
-    idepthmap, graph_scale, coverage)."""
+    are padded to capacity; n_tris/n_edges count the real rows. The
+    vertex smoother takes incidence slot ranks; the rank-layout smoothers
+    ("pallas", "halo", "pallas_halo") take RCM-order ranks
+    (smoother_kernel.perm_edge_ranks), perm (V,) the RCM rank -> vertex
+    slot order, and "halo" / "pallas_halo" the partition mesh
+    (parallel.sharding.Mesh). timed: optional context-manager factory,
+    called with "smoother" and "raster". Returns (graph', vtx_idepths,
+    normals, tri_validity, idepthmap, graph_scale, coverage)."""
     timed = timed or _no_timer
     geo_prev_to_new = epipolar.load_relative(K, Kinv, pose_prev, pose_new)
     V = graph.x.shape[0]
     E = graph.q1.shape[0]
     D = graph.inc_edge.shape[1]
+    smoother = resolve_smoother(params)
+    # RCM-order ranks are not incidence ranks: the rank-layout modes skip
+    # the incidence tables and build their own layout.
+    rank_layout = smoother in RANK_LAYOUT_SMOOTHERS
     topo = topo_mod.from_edges(edges, n_edges, curr.xy, graph.edges,
                                graph.edge_mask, graph.q1, graph.q2, graph.q3,
-                               E, V, D, ranks=edge_ranks)
+                               E, V, D,
+                               ranks=None if rank_layout else edge_ranks)
     edge_ok = topo.edge_mask & member[topo.edges[:, 0]] \
         & member[topo.edges[:, 1]]
 
@@ -525,8 +582,7 @@ def _post_delaunay_inner(params: Params, K, Kinv, graph: nltgv2.GraphState,
 
     if params.do_nltgv2:
         with timed("smoother"):
-            graph = smoother_kernel.smooth(params.rparams, graph,
-                                           params.solver.n_iters_per_frame)
+            graph = _smooth(params, graph, smoother, edge_ranks, perm, mesh)
     else:
         graph = graph.replace(x=graph.data_term)
 
@@ -562,7 +618,7 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
                feats: FeatureState, graph: nltgv2.GraphState, graph_scale,
                imgs, fids, qs, ts, pf_flags, det_flags, pf_slots, id_bases,
                prev_q, prev_t, sync_q, sync_t, seed_map, topo: dict,
-               width: int, height: int, timed=None):
+               width: int, height: int, mesh=None, timed=None):
     """B frames in one step (flame_tpu/core/pipeline.py::batch_step):
     per-frame tracking with the exact sequential semantics, then one
     post-Delaunay section (topology, graph sync, smoothing, mesh outputs)
@@ -583,7 +639,9 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
     values (pf_slots[b] is the current poseframe slot during frame b).
     prev_q/prev_t: pose of the frame before the batch. topo: the applied
     topology (tris, n_tris, edges, n_edges, edge_ranks), whose triangles
-    the per-frame maps draw; the stack is updated in place. timed:
+    the per-frame maps draw, and its RCM perm under a rank-layout
+    smoother; mesh: the partition mesh of "halo" / "pallas_halo" (see
+    _post_delaunay_inner). The stack is updated in place. timed:
     optional context-manager factory for the "raster_batch",
     "update_idepths" and "sync_graph" stages.
 
@@ -635,7 +693,7 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
             params, K, Kinv, graph, member, curr, (sync_q, sync_t),
             (f.q, f.t), graph_scale, width, height,
             dense_views[-1] if params.init_with_prediction else None,
-            timed=timed, **topo)
+            mesh=mesh, timed=timed, **topo)
     return (f, stack, feats, curr, member, stats, packed) + post \
         + (cand.max_count,)
 

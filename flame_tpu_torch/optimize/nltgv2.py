@@ -140,6 +140,53 @@ def _unit_ball(q):
     return q / torch.clamp(torch.abs(q), min=1.0)
 
 
+def slot_step(p: RegularizerParams, is_src, sdx, sdy, sal, sbe, sgn, own,
+              nbr, q):
+    """One iteration's per-slot work in any slot layout: dual ascent with
+    the unit-ball projection on the slot's copy of the duals, then the
+    slot's primal contribution to its own vertex (reference .cc:89-142).
+    own / nbr: the (x_bar, w1_bar, w2_bar) of the slot's vertex and of its
+    neighbour, broadcastable to the slot tables; q: (q1, q2, q3). Returns
+    (new q, (d_x, d_w1, d_w2))."""
+    xb_s, w1b_s, w2b_s = own
+    xb_n, w1b_n, w2b_n = nbr
+    # Canonical (src i, dst j) orientation.
+    xb_i = torch.where(is_src, xb_s, xb_n)
+    xb_j = torch.where(is_src, xb_n, xb_s)
+    w1b_i = torch.where(is_src, w1b_s, w1b_n)
+    w1b_j = torch.where(is_src, w1b_n, w1b_s)
+    w2b_i = torch.where(is_src, w2b_s, w2b_n)
+    w2b_j = torch.where(is_src, w2b_n, w2b_s)
+
+    qa = p.step_q * sal
+    qb = p.step_q * sbe
+    K1 = (xb_i - xb_j) - sdx * w1b_i - sdy * w2b_i
+    q1 = _unit_ball(q[0] + qa * K1)
+    q2 = _unit_ball(q[1] + qb * (w1b_i - w1b_j))
+    q3 = _unit_ball(q[2] + qb * (w2b_i - w2b_j))
+
+    sxa = p.step_x * sal
+    sxb = p.step_x * sbe
+    zero = torch.zeros_like(q1)
+    d_x = -sgn * q1 * sxa
+    d_w1 = torch.where(is_src, q1 * sxa * sdx, zero) - sgn * q2 * sxb
+    d_w2 = torch.where(is_src, q1 * sxa * sdy, zero) - sgn * q3 * sxb
+    return (q1, q2, q3), (d_x, d_w1, d_w2)
+
+
+def vertex_step(p: RegularizerParams, x, w1, w2, sums, data, weight, vmask):
+    """One iteration's per-vertex work: the summed slot contributions,
+    proxL1 toward the data term, the vertex mask and the theta
+    extragradient (reference .cc:156-174). weight = data_factor *
+    data_weight; vmask bool. Returns (x, w1, w2, x_bar, w1_bar, w2_bar)."""
+    nx = torch.where(vmask, _prox_l1(p, weight, x + sums[0], data), x)
+    nw1 = torch.where(vmask, w1 + sums[1], w1)
+    nw2 = torch.where(vmask, w2 + sums[2], w2)
+    return (nx, nw1, nw2,
+            torch.clamp(nx + p.theta * (nx - x), p.x_min, p.x_max),
+            nw1 + p.theta * (nw1 - w1), nw2 + p.theta * (nw2 - w2))
+
+
 def iterate_plain(p: RegularizerParams, t: SlotTables,
                   data: torch.Tensor, weight: torch.Tensor,
                   vmask: torch.Tensor, s: SmoothState,
@@ -148,39 +195,15 @@ def iterate_plain(p: RegularizerParams, t: SlotTables,
     package); the plain counterpart of the CUDA smoother kernel.
     weight = data_factor * data_weight; vmask is bool."""
     is_src = t.srcf > 0.0
-    sxa = p.step_x * t.sal
-    sxb = p.step_x * t.sbe
-    qa = p.step_q * t.sal
-    qb = p.step_q * t.sbe
     x, w1, w2, xb, w1b, w2b, q1, q2, q3 = s
     for _ in range(n_iters):
-        x_prev, w1_prev, w2_prev = x, w1, w2
         nb = torch.stack([xb, w1b, w2b], dim=1)[t.nbr]  # (V, D, 3)
-        xb_s, w1b_s, w2b_s = xb[:, None], w1b[:, None], w2b[:, None]
-        xb_n, w1b_n, w2b_n = nb[..., 0], nb[..., 1], nb[..., 2]
-        xb_i = torch.where(is_src, xb_s, xb_n)
-        xb_j = torch.where(is_src, xb_n, xb_s)
-        w1b_i = torch.where(is_src, w1b_s, w1b_n)
-        w1b_j = torch.where(is_src, w1b_n, w1b_s)
-        w2b_i = torch.where(is_src, w2b_s, w2b_n)
-        w2b_j = torch.where(is_src, w2b_n, w2b_s)
-
-        K1 = (xb_i - xb_j) - t.sdx * w1b_i - t.sdy * w2b_i
-        q1 = _unit_ball(q1 + qa * K1)
-        q2 = _unit_ball(q2 + qb * (w1b_i - w1b_j))
-        q3 = _unit_ball(q3 + qb * (w2b_i - w2b_j))
-
-        d_x = -t.sgn * q1 * sxa
-        d_w1 = t.srcf * q1 * sxa * t.sdx - t.sgn * q2 * sxb
-        d_w2 = t.srcf * q1 * sxa * t.sdy - t.sgn * q3 * sxb
-        nx = _prox_l1(p, weight, x + d_x.sum(1), data)
-        x = torch.where(vmask, nx, x)
-        w1 = torch.where(vmask, w1 + d_w1.sum(1), w1)
-        w2 = torch.where(vmask, w2 + d_w2.sum(1), w2)
-
-        xb = torch.clamp(x + p.theta * (x - x_prev), p.x_min, p.x_max)
-        w1b = w1 + p.theta * (w1 - w1_prev)
-        w2b = w2 + p.theta * (w2 - w2_prev)
+        (q1, q2, q3), d = slot_step(
+            p, is_src, t.sdx, t.sdy, t.sal, t.sbe, t.sgn,
+            (xb[:, None], w1b[:, None], w2b[:, None]),
+            (nb[..., 0], nb[..., 1], nb[..., 2]), (q1, q2, q3))
+        x, w1, w2, xb, w1b, w2b = vertex_step(
+            p, x, w1, w2, [v.sum(1) for v in d], data, weight, vmask)
     return SmoothState(x, w1, w2, xb, w1b, w2b, q1, q2, q3)
 
 

@@ -1,0 +1,190 @@
+"""The partitioned banded smoother with its CUDA halo kernel (K3).
+
+Counterpart of flame_tpu/parallel/pallas_halo.py (smoother="pallas_halo",
+and smoother="pallas" at one partition), as optimize/smoother_kernel.py
+is of pallas_smoother.py. The banded layout (smoother_kernel.build_layout)
+is cut into mesh.size partitions of Rb = R / n contiguous rows of 128
+lanes. Every iteration each partition sends its top `reach` rows of the
+extragradient state (x_bar, w1_bar, w2_bar) to its left ring neighbour
+and its bottom `reach` rows to its right one, installs the two strips it
+receives as halo rows around its own block, and runs K1's
+Chambolle-Pock step on its block, reading neighbours through the
+extended (Rb + 2 * reach, 128) state. The RCM band keeps every live edge
+within `reach` rows, so a partition never needs more.
+
+For tensors on the CPU the iterations run the plain version
+(iterate_plain). For CUDA tensors csrc/halo_smoother.cu runs all
+iterations of all partitions in one launch, one CTA per partition, or
+the call raises; there is no fallback.
+"""
+
+import torch
+
+from flame_tpu_torch import _kernels
+from flame_tpu_torch.optimize import nltgv2
+from flame_tpu_torch.optimize.smoother_kernel import (LANES, _rows,
+                                                      build_layout,
+                                                      write_back)
+from flame_tpu_torch.params import RegularizerParams
+from flame_tpu_torch.parallel.sharding import Mesh
+
+KERNEL = "halo_smoother"
+# Vertices one thread of the kernel holds across an iteration (8 at 1024
+# threads): at most 64 rows of 128 lanes per partition.
+MAX_BLOCK_ROWS = 64
+
+
+def traffic_model(V: int, n_dev: int, n_iters: int, reach: int,
+                  dtype_bytes: int = 4) -> dict:
+    """Bytes one smooth_sharded call exchanges: per iteration each
+    partition sends its top and bottom `reach` rows of the three bar
+    fields, independent of V."""
+    strip = reach * LANES * 3 * dtype_bytes
+    return {
+        "smoother": "pallas_halo",
+        "n_devices": n_dev,
+        "block_rows_per_device": _rows(V) // n_dev,
+        "collectives_per_iter": 2,
+        "bytes_per_device_per_iter": 2 * strip,
+        "bytes_per_device_total": 2 * strip * n_iters,
+        "bytes_all_devices_total": 2 * strip * n_iters * n_dev,
+    }
+
+
+def _check_blocks(R: int, n: int, reach: int):
+    if n < 1 or R % n:
+        raise ValueError(f"{KERNEL}: {R} rank rows do not divide into {n} "
+                         f"partitions")
+    if R // n < reach:
+        raise ValueError(f"{KERNEL}: a partition's {R // n} rows must "
+                         f"cover the halo of reach {reach}")
+
+
+def iterate_plain(p: RegularizerParams, n_iters: int, degree: int,
+                  reach: int, n: int, vtx, slots):
+    """The plain version of the kernel: n_iters iterations of every
+    partition over (n, Rb + 2 * reach, 128) extended bar state
+    (pallas_halo._halo_kernel of the JAX package). vtx / slots as
+    BandedLayout's; returns (x, w1, w2, x_bar, w1_bar, w2_bar) as
+    (R, 128) and (q1, q2, q3) as (R * D, 128)."""
+    R = vtx[0].shape[0]
+    D = degree
+    r = reach
+    _check_blocks(R, n, r)
+    Rb = R // n
+    x, w1, w2, xb, w1b, w2b, data, weight, vmaskf = (
+        a.reshape(n, Rb, LANES) for a in vtx)
+    nbr, rf, sdx, sdy, sal, sbe, sgn, srcf, q1, q2, q3 = (
+        a.reshape(n, Rb * D, LANES) for a in slots)
+    nbr = nbr.long()
+
+    is_src = srcf > 0.0
+    vmask = vmaskf > 0.0
+    wgt = p.data_factor * weight
+
+    def rep(v):  # (n, Rb, 128) -> (n, Rb * D, 128): slot row i*D+d = row i
+        return v[:, :, None, :].expand(n, Rb, D, LANES).reshape(
+            n, Rb * D, LANES)
+
+    def nbr_read(vE):
+        """Per-slot neighbour value from (n, Rb + 2r, 128) extended state:
+        a slot with rowflag k reads extended rows [k, k + Rb)."""
+        out = None
+        for k in range(2 * r + 1):
+            gk = torch.gather(rep(vE[:, k:k + Rb]), 2, nbr)
+            out = gk if out is None else torch.where(rf == k, gk, out)
+        return out
+
+    def dsum(v):
+        return v.reshape(n, Rb, D, LANES).sum(2)
+
+    # Extended bar state; rows [0, r) come from the left neighbour, rows
+    # [Rb + r, Rb + 2r) from the right one (ring; at n = 1 a partition
+    # is its own neighbour and the wrapped rows are never read).
+    be = torch.zeros((3, n, Rb + 2 * r, LANES), dtype=torch.float32,
+                     device=x.device)
+    be[0, :, r:Rb + r] = xb
+    be[1, :, r:Rb + r] = w1b
+    be[2, :, r:Rb + r] = w2b
+    q = (q1, q2, q3)
+    for _ in range(n_iters):
+        be[:, :, :r] = torch.roll(be[:, :, Rb:Rb + r], 1, dims=1)
+        be[:, :, Rb + r:] = torch.roll(be[:, :, r:2 * r], -1, dims=1)
+        q, d = nltgv2.slot_step(
+            p, is_src, sdx, sdy, sal, sbe, sgn,
+            [rep(v[:, r:Rb + r]) for v in be], [nbr_read(v) for v in be], q)
+        x, w1, w2, *bars = nltgv2.vertex_step(
+            p, x, w1, w2, [dsum(v) for v in d], data, wgt, vmask)
+        for k in range(3):
+            be[k, :, r:Rb + r] = bars[k]
+    own = be[:, :, r:Rb + r]
+    return (tuple(a.reshape(R, LANES) for a in (x, w1, w2, own[0], own[1],
+                                                 own[2]))
+            + tuple(a.reshape(R * D, LANES) for a in q))
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"{KERNEL}: {name} must be a contiguous {dtype} "
+                         f"tensor of shape {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def iterate(p: RegularizerParams, n_iters: int, degree: int, reach: int,
+            n: int, vtx, slots):
+    """n_iters iterations over n partitions; same contract as
+    iterate_plain. On CUDA tensors: one launch of the halo kernel."""
+    dev = vtx[0].device
+    if dev.type == "cpu":
+        return iterate_plain(p, n_iters, degree, reach, n, vtx, slots)
+    if dev.type != "cuda":
+        raise ValueError(f"{KERNEL}: unsupported device {dev}")
+    R = vtx[0].shape[0]
+    D = degree
+    _check_blocks(R, n, reach)
+    if R // n > MAX_BLOCK_ROWS:
+        raise ValueError(f"{KERNEL}: {R // n} rows per partition exceed "
+                         f"the kernel's {MAX_BLOCK_ROWS}; use more "
+                         f"partitions")
+    f32, i32 = torch.float32, torch.int32
+    names = ("x", "w1", "w2", "x_bar", "w1_bar", "w2_bar", "data_term",
+             "data_weight", "vtx_mask")
+    for name, t in zip(names, vtx):
+        _check(name, t, (R, LANES), f32, dev)
+    for k, (name, t) in enumerate(zip(
+            ("nbr", "rowflag", "sdx", "sdy", "sal", "sbe", "sgn", "srcf",
+             "q1", "q2", "q3"), slots)):
+        _check(name, t, (R * D, LANES), i32 if k < 2 else f32, dev)
+    # The kernel updates its state in place: work on copies.
+    state = [t.clone() for t in vtx[:6]] + [t.clone() for t in slots[8:]]
+    rx = torch.empty((n, 2, 2, 3, reach, LANES), dtype=f32, device=dev)
+    flags = torch.empty((n, 2), dtype=i32, device=dev)
+    err = _kernels.load().halo_smoother(
+        *(t.data_ptr() for t in state[:6]),
+        *(t.data_ptr() for t in vtx[6:]),
+        *(t.data_ptr() for t in slots[:8]),
+        *(t.data_ptr() for t in state[6:]),
+        rx.data_ptr(), flags.data_ptr(), n, R // n, D, reach, n_iters,
+        p.step_x, p.step_q, p.theta, p.x_min, p.x_max, p.data_factor,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check_cuda_error(err, KERNEL)
+    _kernels.LAUNCHES[KERNEL] += 1
+    return tuple(state)
+
+
+def smooth_sharded(p: RegularizerParams, g: nltgv2.GraphState, perm,
+                   inv_perm, ranks_p, n_iters: int, degree: int, mesh: Mesh,
+                   reach: int = 2) -> nltgv2.GraphState:
+    """The banded layout of g, n_iters iterations over mesh.size
+    partitions (the kernel on the card), and the write-back; the same
+    GraphState contract as smoother_kernel.smooth. perm / inv_perm /
+    ranks_p from smoother_kernel.rcm_order and perm_edge_ranks."""
+    V = g.x.shape[0]
+    _check_blocks(_rows(V), mesh.size, reach)
+    if g.x.device != mesh.device:
+        raise ValueError(f"{KERNEL}: graph on {g.x.device}, mesh on "
+                         f"{mesh.device}")
+    lay = build_layout(g, perm, inv_perm, ranks_p, degree, reach)
+    outs = iterate(p, n_iters, degree, reach, mesh.size, lay.vtx, lay.slots)
+    return write_back(g, outs, inv_perm, lay.src_slot, lay.alive)

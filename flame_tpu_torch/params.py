@@ -3,11 +3,9 @@
 The same frozen dataclasses, field names and defaults as
 flame_tpu/params.py, so one configuration drives both packages
 (convert.params_from_dict). Left out: `max_topology_staleness` (never
-read), `pallas_reach` (a layout knob of the TPU smoother kernel) and the
-scoped-VMEM budget, which are TPU limits. Several fields configure paths
-that are not ported yet (async topology, frame batching, bundle
-adjustment, automatic poseframes, comparison-poseframe scoring); Flame
-raises when one of them is set.
+read) and the scoped-VMEM budget, a TPU limit. Two fields configure
+paths that are not ported yet (bundle adjustment, automatic
+poseframes); Flame raises when one of them is set.
 """
 
 import dataclasses
@@ -95,8 +93,14 @@ class SolverParams:
 
     n_iters_per_frame: int = 40  # Chambolle-Pock iterations per update().
     max_vertex_degree: int = 16  # Slots of the [V, D] incidence table.
-    smoother: str = "auto"  # The port always runs the vertex-centric form.
-    # Not ported yet (Flame raises when they leave their defaults):
+    # Smoother implementation (pipeline.resolve_smoother): "auto" and
+    # "vertex" run the vertex-centric kernel K1; "pallas" the RCM-banded
+    # layout through the halo kernel K3 with one partition; "halo" and
+    # "pallas_halo" the partitioned smoothers of parallel/ (ShardedFlame).
+    smoother: str = "auto"
+    # Row reach of the banded layout: edges whose RCM ranks lie more than
+    # pallas_reach rows of 128 apart are left out of the frame's smoothing.
+    pallas_reach: int = 2
     async_topology: bool = False
     topology_lag: int = 2
     fetch_stride: int = 1

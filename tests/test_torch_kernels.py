@@ -6,9 +6,10 @@ jax, run them past tests/conftest.py (which imports jax) with
 Tolerances: the smoother kernel sums a vertex's slots in another order
 than torch (rtol 2e-4 / atol 5e-5 after 40 iterations, the
 tests/test_pallas_smoother.py bound), and both copies of every edge's
-duals stay bit-equal. The raster kernels' inside test (one view, and B
-views after one shared binning) is exact on truncated vertices
-(identical NaN masks) and their values agree to 1e-5.
+duals stay bit-equal. So for the halo kernel K3, whose outputs are also
+bit-equal for every number of partitions. The raster kernels' inside
+test (one view, and B views after one shared binning) is exact on
+truncated vertices (identical NaN masks) and their values agree to 1e-5.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from flame_tpu_torch.mesh import delaunay  # noqa: E402
 from flame_tpu_torch.ops import raster_kernel, rasterize  # noqa: E402
 from flame_tpu_torch.optimize import nltgv2, smoother_kernel  # noqa: E402
 from flame_tpu_torch.optimize import topology  # noqa: E402
+from flame_tpu_torch.parallel import halo_kernel  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +108,52 @@ def test_smoother_full_smooth_matches_plain(graph):
                                    rtol=2e-4, atol=5e-5, msg=name)
 
 
+def _banded(g):
+    """The banded layout of the graph (RCM order of its edges, reach 2)."""
+    edges = g.edges[g.edge_mask].cpu().numpy()
+    n_e = edges.shape[0]
+    perm = smoother_kernel.rcm_order(edges, n_e, V, np.ones(V, bool))
+    inv = np.empty(V, np.int32)
+    inv[perm] = np.arange(V, dtype=np.int32)
+    ranks = smoother_kernel.perm_edge_ranks(edges, n_e, inv, E, D, 2)
+    t = lambda a: torch.as_tensor(a, device=g.x.device)
+    lay = smoother_kernel.build_layout(g, t(perm), t(inv), t(ranks), D, 2)
+    # Flat slot of each edge's dst copy (row (u // 128) * D + d, lane).
+    hi_p = t(inv.astype(np.int64))[g.edges[:, 1]]
+    dst = ((hi_p // 128) * D + t(ranks[:, 1].astype(np.int64))) * 128 \
+        + hi_p % 128
+    return lay, dst
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_halo_kernel_matches_plain(graph, n):
+    g, _ = graph
+    lay, dst = _banded(g)
+    p = RegularizerParams()
+    before = _kernels.LAUNCHES["halo_smoother"]
+    out_k = halo_kernel.iterate(p, 40, D, 2, n, lay.vtx, lay.slots)
+    assert _kernels.LAUNCHES["halo_smoother"] == before + 1
+    out_p = halo_kernel.iterate_plain(p, 40, D, 2, n, lay.vtx, lay.slots)
+    for a, b in zip(out_k, out_p):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-5)
+    # Both copies of every live edge's duals are bit-equal.
+    assert int(lay.alive.sum()) > 0
+    for q in out_k[6:]:
+        qf = q.reshape(-1)
+        assert torch.equal(qf[lay.src_slot[lay.alive]], qf[dst[lay.alive]])
+
+
+def test_halo_kernel_independent_of_partitions(graph):
+    g, _ = graph
+    lay, _ = _banded(g)
+    p = RegularizerParams()
+    base = halo_kernel.iterate(p, 40, D, 2, 1, lay.vtx, lay.slots)
+    for n in (2, 4):
+        out = halo_kernel.iterate(p, 40, D, 2, n, lay.vtx, lay.slots)
+        for a, b in zip(out, base):
+            assert torch.equal(a, b)
+
+
 def test_raster_kernel_matches_plain(graph):
     g, tris = graph
     vals = torch.rand(V, device=tris.device) + 0.5
@@ -163,7 +211,10 @@ def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):
     monkeypatch.setattr(nltgv2, "iterate_plain", forbidden)
     monkeypatch.setattr(rasterize, "eval_tiles", forbidden)
     monkeypatch.setattr(rasterize, "eval_tiles_batch", forbidden)
+    monkeypatch.setattr(halo_kernel, "iterate_plain", forbidden)
     smoother_kernel.smooth(RegularizerParams(), g, 3)
+    lay, _ = _banded(g)
+    halo_kernel.iterate(RegularizerParams(), 3, D, 2, 2, lay.vtx, lay.slots)
     vals = torch.ones(V, device=tris.device)
     valid = torch.ones(tris.shape[0], dtype=torch.bool, device=tris.device)
     raster_kernel.rasterize(g.pos, tris, vals, valid, H, W)

@@ -201,6 +201,7 @@ def test_params_round_trip():
     tp = convert.params_from_dict(dataclasses.asdict(jp))
     assert tp.rparams == RegularizerParams()
     assert tp.solver.n_iters_per_frame == jp.solver.n_iters_per_frame
-    assert not hasattr(tp.solver, "pallas_reach")
+    assert tp.solver.pallas_reach == jp.solver.pallas_reach
+    assert tp.solver.smoother == jp.solver.smoother
     with pytest.raises(ValueError):
         convert.params_from_dict({"no_such_field": 1})
