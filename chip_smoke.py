@@ -8,11 +8,16 @@ Phases (any failure raises and the script exits non-zero):
      is switched off for matmuls and cuDNN (the geometry needs full fp32);
   2. build the CUDA kernels from flame_tpu_torch/csrc, one nvcc per
      source, all started together;
-  3. the NLTGV2 smoother kernel (K1) against its plain torch version on a
-     Delaunay graph of 4096 seeded points over 640x480 (D=20, 40
-     iterations), including bit-equal dual copies at both edge ends;
-  4. the tile rasterizer kernel (K2) against its plain version on that
-     mesh;
+  3. the NLTGV2 smoother kernel (K1, all iterations in one launch)
+     against its plain torch version on a Delaunay graph of 4096 seeded
+     points over 640x480 (D=20) and of 8192 over 1024x768 (D=16), 40
+     iterations each, including bit-equal dual copies at both edge ends
+     and one launch per call;
+  4. the single-view rasterizer kernel (K2, binning and tile pass in one
+     launch) through raster_kernel.rasterize against the plain
+     rasterize.rasterize on the 640x480 mesh and on a mesh with a tile of
+     more than 160 overlapping triangles: equal NaN masks, values, and
+     largest per-tile count;
   5. the batched tile rasterizer kernel (K2b) against its plain version
      on 8 views of that mesh (shifted and scaled per view, per-view
      values, one view with invalidated triangles) after one shared
@@ -24,20 +29,21 @@ Phases (any failure raises and the script exits non-zero):
   6. the synchronous path: flame_tpu_torch.Flame at 640x480 with 4096
      features on a synthetic textured plane at 5 m, 30 frames, every
      second one a poseframe; K1 and K2 must run on every frame that
-     makes a mesh, and the dense map must cover >= 50% of the image
-     within 1% median relative error of the true inverse depth;
+     makes a mesh (K1 and K2 once each), and the dense map must cover
+     >= 50% of the image within 1% median relative error of the true
+     inverse depth;
   7. the throughput path: bench.py's configuration (async topology,
      frame_batch=8, photo_error_num_pfs=30, 16 poseframe slots) for 96
      frames of the same scene, once with frames already on the card
      ("resident") and once with numpy frames ("host"); K2b must run once
-     per batched step, K1 40 times per post-Delaunay step, at least one
+     per batched step, K1 and K2 once per post-Delaunay step, at least one
      poseframe must be evicted, and the final map must meet the bounds
      of phase 6;
   8. the partitioned smoother path: ShardedFlame with
      smoother="pallas_halo" on make_mesh(4) (4 partitions of the card),
      on phase 6's frames (its dense map within a median 1e-4 of phase
-     6's) and on phase 7's configuration with resident frames; K3 once
-     and K1 never per post-Delaunay step, with the bounds of phase 6.
+     6's) and on phase 7's configuration with resident frames; K3 and K2
+     once and K1 never per post-Delaunay step, with the bounds of phase 6.
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON summary (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -72,9 +78,15 @@ PEAK_F32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 SLOT_OPS = 37
 VERTEX_OPS = 21
 # Raster: per (valid candidate, tile pixel) three edge functions and the
-# inside test; per covered pixel the value and the max.
+# inside test; per covered pixel the value and the max; per (tile,
+# triangle) of the binning four bbox compares and the valid test.
 RASTER_PAIR_OPS = 15
 RASTER_PIXEL_OPS = 6
+RASTER_BIN_OPS = 5
+# Cycles of torch.cuda._sleep that keep the card busy while the host
+# queues the timed calls (about 25 ms at H100 clocks), so that their CUDA
+# events measure the card's time and not the host's.
+QUEUE_SLEEP_CYCLES = 50_000_000
 
 
 def bound(nbytes, ops):
@@ -105,6 +117,48 @@ def raster_bound(cdata, out):
     covered = int((out > -1e38).sum())
     return bound(4 * (cdata.numel() + out.numel()),
                  RASTER_PAIR_OPS * pairs + RASTER_PIXEL_OPS * covered)
+
+
+def mesh_bound(packed, bbox, grid, H, W, tile_h=32, max_per_tile=160):
+    """K2: triangle rows and bboxes read once, the map written once; the
+    binning of every (tile, triangle), the operations of each kept
+    candidate over the pixels of its bbox within its tile, and of the
+    covered pixels."""
+    from flame_tpu_torch.ops import rasterize
+    T = packed.shape[0]
+    nty, ntx = grid.shape[0] // tile_h, grid.shape[1] // rasterize.TILE_W
+    kvals, _ = rasterize._bin_tiles(bbox.unbind(1), packed[:, 13] > 0, H, W,
+                                    tile_h, min(max_per_tile, T))
+    t = kvals.clamp(min=0)
+    tid = torch.arange(nty * ntx, device=grid.device)[:, None]
+    tx = (tid % ntx * rasterize.TILE_W).float()
+    ty = (tid // ntx * tile_h).float()
+    nx = torch.minimum(torch.floor(bbox[t, 1]), tx + rasterize.TILE_W - 1) \
+        - torch.maximum(torch.ceil(bbox[t, 0]), tx) + 1
+    ny = torch.minimum(torch.floor(bbox[t, 3]), ty + tile_h - 1) \
+        - torch.maximum(torch.ceil(bbox[t, 2]), ty) + 1
+    pairs = int((nx.clamp(min=0) * ny.clamp(min=0) * (kvals >= 0)).sum())
+    covered = int((grid > -1e38).sum())
+    return bound(4 * (packed.numel() + bbox.numel() + grid.numel()),
+                 RASTER_BIN_OPS * T * nty * ntx + RASTER_PAIR_OPS * pairs
+                 + RASTER_PIXEL_OPS * covered)
+
+
+def _device_ms(fn, reps):
+    """Mean milliseconds of the card's time for fn() over reps runs: the
+    card sleeps while the host queues them, then runs them back to back
+    between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _cuda_ms(fn, reps):
@@ -202,12 +256,17 @@ def make_graph(dev, V=4096, E=12288, D=20, W=640, H=480):
 
 
 def check_smoother(g, n_iters=40):
+    from flame_tpu_torch import _kernels
     from flame_tpu_torch.optimize import nltgv2, smoother_kernel
     p = __import__("flame_tpu_torch").RegularizerParams()
     tables, state = nltgv2.slot_prologue(g)
     weight = (p.data_factor * g.data_weight).contiguous()
     args = (p, tables, g.data_term, weight, g.vtx_mask)
+    before = _kernels.LAUNCHES["nltgv2_smoother"]
     out_k = smoother_kernel.iterate(*args, state, n_iters)
+    per_call = _kernels.LAUNCHES["nltgv2_smoother"] - before
+    if per_call != 1:
+        raise AssertionError(f"smoother: {per_call} launches for one call")
     out_p = nltgv2.iterate_plain(*args, state, n_iters)
     torch.cuda.synchronize()
     err = 0.0
@@ -232,60 +291,110 @@ def check_smoother(g, n_iters=40):
         if not torch.equal(s, d):
             raise AssertionError("smoother dual copies differ: "
                                  f"{int((s != d).sum())} of {n_pairs}")
-    reps = 20
-    k_ms = _cuda_ms(lambda: smoother_kernel.iterate(*args, state, n_iters),
-                    reps)
-    p_ms = _cuda_ms(lambda: nltgv2.iterate_plain(*args, state, n_iters),
-                    reps)
+    def kernel():
+        return smoother_kernel.iterate(*args, state, n_iters)
+    k_ms = _device_ms(kernel, 20)
+    k_back_ms = _cuda_ms(kernel, 20)
+    p_ms = _cuda_ms(lambda: nltgv2.iterate_plain(*args, state, n_iters), 5)
+    plan = smoother_kernel._plan(g.x.device.index, V, D)
     print(f"K1 nltgv2_smoother V={V} D={D} E={int(g.edge_mask.sum())} "
           f"iters={n_iters}: max|kernel-plain| {err:.3g} "
           f"(rtol {K1_TOL['rtol']}, atol {K1_TOL['atol']}); "
-          f"{n_pairs} dual pairs bit-equal")
-    print(f"K1 time: kernel {1000 * k_ms / n_iters:.2f} us/iter, plain "
-          f"torch {1000 * p_ms / n_iters:.2f} us/iter")
+          f"{n_pairs} dual pairs bit-equal; {per_call} launch per call "
+          f"({plan.grid} CTAs of 1024 threads, {plan.vertices_per_warp} "
+          f"vertices per warp)")
+    print(f"K1 time V={V}: kernel {k_ms:.4f} ms per call on the card "
+          f"({1000 * k_ms / n_iters:.2f} us/iter; {k_back_ms:.4f} ms per "
+          f"call back to back, wrapper included), plain torch {p_ms:.4f} ms "
+          f"({1000 * p_ms / n_iters:.2f} us/iter)")
     b = smoother_bound(V, D, int((tables.sgn != 0).sum()),
                        int(g.vtx_mask.sum()), n_iters, 13)
-    print(f"K1 bound: {1000 * b['bound_ms']:.3f} us for {n_iters} "
-          f"iterations ({b['bound_by']})")
+    print(f"K1 bound V={V}: {b['bound_ms']:.6f} ms per call, "
+          f"{1000 * b['bound_ms'] / n_iters:.4f} us per iteration "
+          f"({b['bound_by']})")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
 
 
+def overflow_mesh(dev, W=640, H=480, V=4096, cluster=600):
+    """A Delaunay mesh of V seeded points over W x H plus `cluster` points
+    inside one 32x128 tile, whose overlap count passes 160."""
+    from flame_tpu_torch.mesh import delaunay
+    rng = np.random.default_rng(SEED + 3)
+    pts = np.concatenate([
+        rng.uniform([2, 2], [W - 2, H - 2], (V, 2)),
+        rng.uniform([262, 194], [378, 222], (cluster, 2))]).astype(np.float32)
+    tri = delaunay.triangulate(pts)
+    return (torch.as_tensor(pts, device=dev),
+            torch.as_tensor(tri.triangles.astype(np.int64), device=dev))
+
+
 def check_raster(g, tris_np, W=640, H=480):
+    """K2 through raster_kernel.rasterize_with_count against the plain
+    rasterize.rasterize on the bench mesh and an overflowing one; times
+    of the one launch and of the whole call on the bench mesh."""
+    from flame_tpu_torch import _kernels
     from flame_tpu_torch.ops import raster_kernel, rasterize
     dev = g.x.device
     rng = np.random.default_rng(SEED + 1)
-    T = tris_np.shape[0]
-    tris = torch.as_tensor(tris_np, device=dev)
-    vals = torch.as_tensor(rng.uniform(0.5, 2.0, g.x.shape[0]),
+    cap = raster_kernel.MAX_PER_TILE
+    bench = (g.pos, torch.as_tensor(tris_np, device=dev))
+    err = 0.0
+    for label, (pos, tris) in (("bench mesh", bench),
+                               ("overflow mesh", overflow_mesh(dev, W, H))):
+        T = tris.shape[0]
+        vals = torch.as_tensor(rng.uniform(0.5, 2.0, pos.shape[0]),
+                               dtype=torch.float32, device=dev)
+        valid = torch.as_tensor(rng.uniform(size=T) > 0.02, device=dev)
+        before = _kernels.LAUNCHES["raster_mesh"]
+        out_k, count_k = raster_kernel.rasterize_with_count(
+            pos, tris, vals, valid, H, W)
+        launches = _kernels.LAUNCHES["raster_mesh"] - before
+        out_p = rasterize.rasterize(pos, tris, vals, valid, H, W,
+                                    max_per_tile=cap)
+        count_p = int(rasterize.tile_candidates(
+            pos, tris, vals, valid, H, W, max_per_tile=cap).max_count)
+        torch.cuda.synchronize()
+        nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
+        if not torch.equal(nan_k, nan_p):
+            raise AssertionError(f"raster {label}: NaN masks differ at "
+                                 f"{int((nan_k != nan_p).sum())} pixels")
+        m = ~nan_k
+        e = (out_k[m] - out_p[m]).abs().max().item()
+        if e > K2_ATOL or int(count_k) != count_p or launches != 1:
+            raise AssertionError(
+                f"raster {label}: max|kernel-plain| {e} (atol {K2_ATOL}), "
+                f"max count {int(count_k)} vs plain {count_p}, {launches} "
+                f"launches")
+        if label == "overflow mesh" and count_p <= cap:
+            raise AssertionError(f"raster {label}: no tile overflows")
+        err = max(err, e)
+        print(f"K2 raster_mesh {label} {W}x{H} T={T}: max|kernel-plain| "
+              f"{e:.3g} (atol {K2_ATOL}), NaN masks equal, coverage "
+              f"{m.float().mean().item():.4f}; max overlapping triangles "
+              f"per tile {int(count_k)} = plain's (max_per_tile {cap}); "
+              f"{launches} launch")
+    pos, tris = bench
+    vals = torch.as_tensor(rng.uniform(0.5, 2.0, pos.shape[0]),
                            dtype=torch.float32, device=dev)
-    valid = torch.ones(T, dtype=torch.bool, device=dev)
-    cand = rasterize.tile_candidates(g.pos, tris, vals, valid, H, W,
-                                     max_per_tile=raster_kernel.MAX_PER_TILE)
-    cd = cand.cdata.contiguous()
-    out_k = rasterize.finish(raster_kernel.rasterize_tiles(cd), H, W)
-    out_p = rasterize.finish(rasterize.eval_tiles(cd), H, W)
-    torch.cuda.synchronize()
-    nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
-    if not torch.equal(nan_k, nan_p):
-        raise AssertionError(f"raster NaN masks differ at "
-                             f"{int((nan_k != nan_p).sum())} pixels")
-    m = ~nan_k
-    err = (out_k[m] - out_p[m]).abs().max().item()
-    if err > K2_ATOL:
-        raise AssertionError(f"raster max|kernel-plain| {err} > {K2_ATOL}")
-    k_ms = _cuda_ms(lambda: raster_kernel.rasterize_tiles(cd), 50)
-    p_ms = _cuda_ms(lambda: rasterize.eval_tiles(cd), 10)
+    valid = torch.ones(tris.shape[0], dtype=torch.bool, device=dev)
+    packed, bbox = raster_kernel.mesh_inputs(pos, tris, vals, valid)
+    k_ms = _device_ms(lambda: raster_kernel.raster_mesh(packed, bbox, H, W),
+                      50)
+    k_back_ms = _cuda_ms(lambda: raster_kernel.raster_mesh(packed, bbox, H,
+                                                           W), 50)
+    ok = packed[:, 13] > 0
+    p_ms = _cuda_ms(lambda: rasterize.eval_tiles(rasterize.bin_rows(
+        packed, ok, bbox.unbind(1), H, W, 32, min(cap, tris.shape[0]))
+        .cdata), 10)
     e2e_ms = _cuda_ms(lambda: raster_kernel.rasterize(
-        g.pos, tris, vals, valid, H, W), 20)
-    print(f"K2 raster_tiles {W}x{H} T={T}: max|kernel-plain| {err:.3g} "
-          f"(atol {K2_ATOL}), NaN masks equal, coverage "
-          f"{m.float().mean().item():.4f}; max candidates per tile "
-          f"{int(cand.max_count)} of max_per_tile "
-          f"{raster_kernel.MAX_PER_TILE}")
-    print(f"K2 time: kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms; "
-          f"with setup and binning {e2e_ms:.4f} ms")
-    b = raster_bound(cd, raster_kernel.rasterize_tiles(cd))
-    print(f"K2 bound: {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        pos, tris, vals, valid, H, W), 20)
+    print(f"K2 time: the launch {k_ms:.4f} ms on the card ({k_back_ms:.4f} "
+          f"ms back to back, wrapper included); plain bin_rows + eval_tiles "
+          f"{p_ms:.4f} ms; the whole rasterize call (setup, launch, finish) "
+          f"{e2e_ms:.4f} ms")
+    b = mesh_bound(packed, bbox, raster_kernel.raster_mesh(packed, bbox, H,
+                                                           W)[0], H, W)
+    print(f"K2 bound: {b['bound_ms']:.6f} ms ({b['bound_by']})")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
 
 
@@ -473,11 +582,11 @@ def make_flame(K, Kinv, params, sharded):
     return flame_tpu_torch.Flame(W, H, K, Kinv, params)
 
 
-def smoother_launches(n_iters, sharded):
+def step_launches(sharded):
     """Launches per post-Delaunay step: {kernel: count}."""
     if sharded:
-        return {"halo_smoother": 1, "nltgv2_smoother": 0}
-    return {"nltgv2_smoother": n_iters, "halo_smoother": 0}
+        return {"halo_smoother": 1, "nltgv2_smoother": 0, "raster_mesh": 1}
+    return {"nltgv2_smoother": 1, "halo_smoother": 0, "raster_mesh": 1}
 
 
 def drop_counts(fl):
@@ -540,8 +649,7 @@ def main_path(smi, n_frames=30, sharded=False, ref_map=None):
     from flame_tpu_torch import _kernels
     K, Kinv, frames = scene(n_frames)
     fl = make_flame(K, Kinv, bench_params(), sharded)
-    n_iters = fl.params.solver.n_iters_per_frame
-    per_step = smoother_launches(n_iters, sharded)
+    per_step = step_launches(sharded)
     _kernels.reset_launches()
     frame_ms, meshed = [], 0
     for i in range(n_frames):
@@ -554,14 +662,13 @@ def main_path(smi, n_frames=30, sharded=False, ref_map=None):
             meshed += 1
             frame_ms.append(dt)
             ds = {k: _kernels.LAUNCHES[k] - before[k] for k in per_step}
-            dr = _kernels.LAUNCHES["raster_tiles"] - before["raster_tiles"]
-            if ds != per_step or dr < 1:
-                raise AssertionError(f"frame {i}: smoother launches {ds} "
-                                     f"(want {per_step}), raster {dr}")
+            if ds != per_step:
+                raise AssertionError(f"frame {i}: launches {ds} (want "
+                                     f"{per_step})")
     launches = dict(_kernels.LAUNCHES)
     if meshed < n_frames // 2:
         raise AssertionError(f"only {meshed} of {n_frames} frames meshed")
-    for name in [k for k, v in per_step.items() if v] + ["raster_tiles"]:
+    for name in [k for k, v in per_step.items() if v]:
         if launches[name] < 1:
             raise AssertionError(f"{name} never ran on the synchronous path")
 
@@ -666,19 +773,17 @@ def throughput_path(smi, mode, n_frames=96, sharded=False):
     launches = dict(_kernels.LAUNCHES)
 
     n_post = len(fl.stats.device_times_ms().get("sync_graph", []))
-    n_iters = p.solver.n_iters_per_frame
     evictions = int(fl.stats.stats("pf_evictions"))
     if not (fl._dispatches >= 1
             and launches["raster_tiles_batch"] == fl._dispatches):
         raise AssertionError(f"{mode}: raster_tiles_batch launches "
                              f"{launches['raster_tiles_batch']} vs "
                              f"{fl._dispatches} batched steps")
-    per_step = smoother_launches(n_iters, sharded)
+    per_step = step_launches(sharded)
     if any(launches[k] != v * n_post for k, v in per_step.items()) \
-            or launches["raster_tiles"] != n_post or n_post < 1:
-        raise AssertionError(f"{mode}: smoother launches "
-                             f"{ {k: launches[k] for k in per_step} }, "
-                             f"raster {launches['raster_tiles']} for "
+            or n_post < 1:
+        raise AssertionError(f"{mode}: launches "
+                             f"{ {k: launches[k] for k in per_step} } for "
                              f"{n_post} post-Delaunay steps")
     if evictions < 1:
         raise AssertionError(f"{mode}: no poseframe was evicted")
@@ -712,8 +817,12 @@ def throughput_path(smi, mode, n_frames=96, sharded=False):
 def main():
     smi = environment()
     build()
-    g, tris, _ = make_graph(torch.device("cuda"))
+    dev = torch.device("cuda")
+    g, tris, _ = make_graph(dev)
     k1 = check_smoother(g)
+    # ROADMAP's XGA row: 8192 features over 1024x768, two vertices per warp.
+    check_smoother(make_graph(dev, V=8192, E=3 * 8192, D=16, W=1024,
+                              H=768)[0])
     k2 = check_raster(g, tris)
     k2b = check_raster_batch(g, tris)
     k3 = check_halo(g, k1)
@@ -728,10 +837,10 @@ def main():
              source="flame_tpu_torch/csrc/nltgv2_smoother.cu",
              replaces="flame_tpu/optimize/pallas_smoother.py:185",
              launches=launches["nltgv2_smoother"], **k1),
-        dict(name="raster_tiles", route="cuda",
+        dict(name="raster_mesh", route="cuda",
              source="flame_tpu_torch/csrc/raster.cu",
              replaces="flame_tpu/ops/pallas_raster.py:161",
-             launches=launches["raster_tiles"], **k2),
+             launches=launches["raster_mesh"], **k2),
         dict(name="raster_tiles_batch", route="cuda",
              source="flame_tpu_torch/csrc/raster.cu",
              replaces="flame_tpu/ops/pallas_raster.py:233",

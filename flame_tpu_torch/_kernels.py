@@ -10,6 +10,13 @@ the flags, so a checkout builds its own kernels and a changed source
 never loads a stale library. A missing nvcc or a failed build raises
 with the compiler's output.
 
+The entries: nltgv2_smoother (K1, every smoother iteration in one
+cooperative launch) with nltgv2_smoother_occupancy (its CTAs per SM, for
+the wrapper's launch plan); raster_mesh (K2, one view's binning and tile
+pass in one launch) and raster_tiles_batch (K2b, B views after a binning
+in torch); halo_smoother (K3, one cooperative launch for every partition
+and iteration). Each returns its cudaError_t.
+
 Each wrapper adds one to its entry of LAUNCHES per kernel launch; a run
 reads the counts to show that its path went through the kernels.
 """
@@ -31,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"nltgv2_smoother": 0, "raster_tiles": 0, "raster_tiles_batch": 0,
+LAUNCHES = {"nltgv2_smoother": 0, "raster_mesh": 0, "raster_tiles_batch": 0,
             "halo_smoother": 0}
 
 # Filled by load(): wall seconds of the parallel build (0 when every
@@ -107,14 +114,19 @@ def load() -> types.SimpleNamespace:
         raster = ctypes.CDLL(paths["raster.cu"])
         halo = ctypes.CDLL(paths["halo_smoother.cu"])
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        smoother.nltgv2_iterate.restype = I
-        smoother.nltgv2_iterate.argtypes = (
-            [P] * 12          # xb/w1b/w2b in, xb/w1b/w2b out, x w1 w2, q1-3
+        smoother.nltgv2_smoother.restype = I
+        smoother.nltgv2_smoother.argtypes = (
+            [P] * 9           # xb w1b w2b x w1 w2 q1 q2 q3 in
             + [P] * 7         # nbr sdx sdy sal sbe sgn srcf
             + [P] * 3         # data weight vmask
-            + [I, I] + [F] * 5 + [P])
-        raster.raster_tiles.restype = I
-        raster.raster_tiles.argtypes = [P, P, I, I, I, I, P]
+            + [P] * 11        # x w1 w2 xb w1b w2b q1 q2 q3 out, scratch,
+                              # barrier
+            + [I] * 4         # V D n_iters vertices_per_warp
+            + [F] * 5 + [P])  # step_x step_q theta x_min x_max, stream
+        smoother.nltgv2_smoother_occupancy.restype = I
+        smoother.nltgv2_smoother_occupancy.argtypes = [I, I, P]
+        raster.raster_mesh.restype = I
+        raster.raster_mesh.argtypes = [P, P, I, P, P, I, I, I, I, P]
         raster.raster_tiles_batch.restype = I
         raster.raster_tiles_batch.argtypes = [P, P, I, I, I, I, I, P]
         halo.halo_smoother.restype = I
@@ -125,8 +137,9 @@ def load() -> types.SimpleNamespace:
             + [I] * 5 + [F] * 6 + [P])
         BUILD_INFO["libraries"] = list(paths.values())
         _lib = types.SimpleNamespace(
-            nltgv2_iterate=smoother.nltgv2_iterate,
-            raster_tiles=raster.raster_tiles,
+            nltgv2_smoother=smoother.nltgv2_smoother,
+            nltgv2_smoother_occupancy=smoother.nltgv2_smoother_occupancy,
+            raster_mesh=raster.raster_mesh,
             raster_tiles_batch=raster.raster_tiles_batch,
             halo_smoother=halo.halo_smoother)
         return _lib

@@ -1,13 +1,17 @@
-"""The tile rasterizer with its CUDA kernel, for one view and for B views.
+"""The tile rasterizer with its CUDA kernels, for one view and for B views.
 
 Counterpart of flame_tpu/ops/pallas_raster.py::rasterize and
-::rasterize_batch. Setup and binning are plain torch
-(rasterize.tile_candidates, tile_candidates_batch); the per-tile
-max-combine is csrc/raster.cu, one CTA per 32x128 tile and view.
+::rasterize_batch. Triangle setup is plain torch (rasterize._packed_rows).
 
-For tensors on the CPU the tiles run the plain version
-(rasterize.eval_tiles, eval_tiles_batch). For CUDA tensors the kernel
-runs or the call raises; there is no fallback.
+  * One view: csrc/raster.cu's raster_mesh bins the triangles to 32x128
+    tiles and max-combines each tile's candidates in one launch, one CTA
+    per tile (plain version: rasterize.bin_rows + eval_tiles).
+  * B views: the shared union-bbox binning is plain torch
+    (rasterize.tile_candidates_batch), the per-tile max-combine
+    csrc/raster.cu's raster_tiles_batch, one CTA per tile and view.
+
+For tensors on the CPU the plain versions run. For CUDA tensors the
+kernel runs or the call raises; there is no fallback.
 """
 
 import torch
@@ -15,39 +19,87 @@ import torch
 from flame_tpu_torch import _kernels
 from flame_tpu_torch.ops import rasterize as plain
 
-KERNEL = "raster_tiles"
+KERNEL = "raster_mesh"
 KERNEL_BATCH = "raster_tiles_batch"
 MAX_PER_TILE = 160
 MAX_PER_TILE_BATCH = 192  # union bboxes grow with the motion in a batch
+# raster_mesh keeps K1 candidates of 68 bytes each in shared memory (at
+# most 227 KB per CTA on Hopper).
+MAX_K1 = 3072
 
 
-def _check(name: str, cdata: torch.Tensor, dims: int, tile_h: int):
-    if cdata.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {cdata.device}")
-    if cdata.dtype != torch.float32 or cdata.dim() != dims \
-            or cdata.shape[-1] != 16 or not cdata.is_contiguous():
-        raise ValueError(f"{name}: cdata must be a contiguous float32 "
-                         f"{dims}-d (..., nty, ntx, K1, 16) tensor, got "
-                         f"{cdata.dtype} {tuple(cdata.shape)}")
+def _check_tile_h(name: str, tile_h: int):
     if not 1 <= tile_h <= 32:
         raise ValueError(f"{name}: tile_h must be in [1, 32]")
 
 
-def rasterize_tiles(cdata: torch.Tensor, tile_h: int = 32) -> torch.Tensor:
-    """(nty, ntx, K1, 16) candidates -> (nty*tile_h, ntx*128), NEG where
-    uncovered; same contract as rasterize.eval_tiles."""
-    if cdata.device.type == "cpu":
-        return plain.eval_tiles(cdata, tile_h)
-    _check(KERNEL, cdata, 4, tile_h)
-    nty, ntx, k1, _ = cdata.shape
+def mesh_inputs(verts, tris, vals, tri_valid, truncate: bool = True):
+    """raster_mesh's inputs: the (T, 16) triangle rows and the (T, 4)
+    [xmin, xmax, ymin, ymax] bboxes of rasterize._packed_rows."""
+    packed, _, bbox = plain._packed_rows(verts, tris, vals, tri_valid,
+                                         truncate)
+    return packed, torch.stack(bbox, dim=1)
+
+
+def raster_mesh(packed: torch.Tensor, bbox: torch.Tensor, height: int,
+                width: int, tile_h: int = 32,
+                max_per_tile: int = MAX_PER_TILE):
+    """One launch: binning of the T triangles to (tile_h, 128) tiles, the
+    K1 = min(max_per_tile, T) highest overlapping indices per tile, and
+    their max-combine. Returns the (nty*tile_h, ntx*128) grid, NEG where
+    uncovered, and the largest per-tile overlap count (a (1,) int32
+    tensor); same contract as rasterize.bin_rows + eval_tiles."""
+    _check_tile_h(KERNEL, tile_h)
+    dev = packed.device
+    T = packed.shape[0]
+    for name, t, cols in (("packed", packed, 16), ("bbox", bbox, 4)):
+        if t.device.type != "cuda" or t.device != dev \
+                or t.dtype != torch.float32 or tuple(t.shape) != (T, cols) \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"{KERNEL}: {name} must be a contiguous, 16-byte aligned "
+                f"float32 ({T}, {cols}) tensor on a CUDA device, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    k1 = min(max_per_tile, T)
+    if k1 > MAX_K1:
+        raise ValueError(f"{KERNEL}: max_per_tile {k1} exceeds the "
+                         f"{MAX_K1} candidates a CTA holds")
+    nty = -(-height // tile_h)
+    ntx = -(-width // plain.TILE_W)
     out = torch.empty((nty * tile_h, ntx * plain.TILE_W),
-                      dtype=torch.float32, device=cdata.device)
-    err = _kernels.load().raster_tiles(
-        cdata.data_ptr(), out.data_ptr(), nty, ntx, k1, tile_h,
-        torch.cuda.current_stream(cdata.device).cuda_stream)
+                      dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    err = _kernels.load().raster_mesh(
+        packed.data_ptr(), bbox.data_ptr(), T, out.data_ptr(),
+        count.data_ptr(), nty, ntx, k1, tile_h,
+        torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check_cuda_error(err, KERNEL)
     _kernels.LAUNCHES[KERNEL] += 1
-    return out
+    return out, count
+
+
+def rasterize_with_count(verts, tris, vals, tri_valid, height: int,
+                         width: int, truncate: bool = True, tile_h: int = 32,
+                         max_per_tile: int = MAX_PER_TILE):
+    """(H, W) float32 map, NaN where uncovered, and the largest per-tile
+    overlap count (a device integer scalar)."""
+    if verts.device.type == "cpu":
+        cand = plain.tile_candidates(verts, tris, vals, tri_valid, height,
+                                     width, truncate, tile_h, max_per_tile)
+        return (plain.finish(plain.eval_tiles(cand.cdata, tile_h), height,
+                             width), cand.max_count)
+    out, count = raster_mesh(*mesh_inputs(verts, tris, vals, tri_valid,
+                                          truncate),
+                             height, width, tile_h, max_per_tile)
+    return plain.finish(out, height, width), count[0]
+
+
+def rasterize(verts, tris, vals, tri_valid, height: int, width: int,
+              truncate: bool = True, tile_h: int = 32,
+              max_per_tile: int = MAX_PER_TILE) -> torch.Tensor:
+    """(H, W) float32 map, NaN where uncovered."""
+    return rasterize_with_count(verts, tris, vals, tri_valid, height, width,
+                                truncate, tile_h, max_per_tile)[0]
 
 
 def rasterize_tiles_batch(cdata: torch.Tensor,
@@ -56,7 +108,15 @@ def rasterize_tiles_batch(cdata: torch.Tensor,
     where uncovered; same contract as rasterize.eval_tiles_batch."""
     if cdata.device.type == "cpu":
         return plain.eval_tiles_batch(cdata, tile_h)
-    _check(KERNEL_BATCH, cdata, 5, tile_h)
+    if cdata.device.type != "cuda":
+        raise ValueError(f"{KERNEL_BATCH}: unsupported device "
+                         f"{cdata.device}")
+    if cdata.dtype != torch.float32 or cdata.dim() != 5 \
+            or cdata.shape[-1] != 16 or not cdata.is_contiguous():
+        raise ValueError(f"{KERNEL_BATCH}: cdata must be a contiguous "
+                         f"float32 (B, nty, ntx, K1, 16) tensor, got "
+                         f"{cdata.dtype} {tuple(cdata.shape)}")
+    _check_tile_h(KERNEL_BATCH, tile_h)
     B, nty, ntx, k1, _ = cdata.shape
     out = torch.empty((B, nty * tile_h, ntx * plain.TILE_W),
                       dtype=torch.float32, device=cdata.device)
@@ -66,16 +126,6 @@ def rasterize_tiles_batch(cdata: torch.Tensor,
     _kernels.check_cuda_error(err, KERNEL_BATCH)
     _kernels.LAUNCHES[KERNEL_BATCH] += 1
     return out
-
-
-def rasterize(verts, tris, vals, tri_valid, height: int, width: int,
-              truncate: bool = True, tile_h: int = 32,
-              max_per_tile: int = MAX_PER_TILE) -> torch.Tensor:
-    """(H, W) float32 map, NaN where uncovered."""
-    cand = plain.tile_candidates(verts, tris, vals, tri_valid, height,
-                                 width, truncate, tile_h, max_per_tile)
-    return plain.finish(rasterize_tiles(cand.cdata.contiguous(), tile_h),
-                        height, width)
 
 
 def rasterize_batch(verts, tris, vals, tri_valid, height: int, width: int,

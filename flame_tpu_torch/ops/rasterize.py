@@ -12,11 +12,12 @@ then integers, so the inside test is exact in float32 for images under
 2048 px.
 
   * rasterize_bruteforce: every triangle against every pixel.
-  * tile_candidates + eval_tiles: the tiled form. Triangles are binned to
-    32x128 tiles by bounding box; each tile keeps the max_per_tile
-    highest-index overlapping triangles (overflow is dropped, and
-    tile_candidates reports the largest count). eval_tiles is the plain
-    version of the CUDA tile kernel (ops/raster_kernel.py).
+  * tile_candidates (_packed_rows + bin_rows) + eval_tiles: the tiled
+    form. Triangles are binned to 32x128 tiles by bounding box; each tile
+    keeps the max_per_tile highest-index overlapping triangles (overflow
+    is dropped, and tile_candidates reports the largest count). bin_rows
+    + eval_tiles is the plain version of the single-view CUDA kernel
+    (ops/raster_kernel.py).
   * tile_candidates_batch + eval_tiles_batch: one triangle set from B
     views with one shared binning pass over the union of each
     triangle's per-view bboxes (pallas_raster.rasterize_batch). When no
@@ -138,10 +139,19 @@ def tile_candidates(verts, tris, vals, tri_valid, height: int, width: int,
                     max_per_tile: int = 160) -> TileCandidates:
     """Triangle setup and bbox binning to (tile_h, 128) tiles
     (pallas_raster._setup_one and _bin_tiles of the JAX package)."""
+    packed, ok, bbox = _packed_rows(verts, tris, vals, tri_valid, truncate)
+    return bin_rows(packed, ok, bbox, height, width, tile_h,
+                    min(max_per_tile, tris.shape[0]))
+
+
+def bin_rows(packed, ok, bbox, height: int, width: int, tile_h: int,
+             K1: int) -> TileCandidates:
+    """Bbox binning of _packed_rows' (T, 16) rows, validity and bboxes:
+    each tile's K1 highest overlapping rows (pallas_raster._bin_tiles and
+    the row gather of the JAX package). With eval_tiles, the plain version
+    of the single-view CUDA kernel (raster_kernel.raster_mesh)."""
     nty = -(-height // tile_h)
     ntx = -(-width // TILE_W)
-    K1 = min(max_per_tile, tris.shape[0])
-    packed, ok, bbox = _packed_rows(verts, tris, vals, tri_valid, truncate)
     kvals, max_count = _bin_tiles(bbox, ok, height, width, tile_h, K1)
     k_valid = kvals >= 0
     cdata = packed[torch.clamp(kvals, min=0)] * k_valid[..., None].float()

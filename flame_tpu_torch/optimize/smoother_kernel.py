@@ -6,10 +6,11 @@ Counterpart of flame_tpu/optimize/pallas_smoother.py, in two halves:
   * iterate/smooth: the vertex-centric smoother. The loop-invariant slot
     prologue and the dual write-back are plain torch
     (nltgv2.slot_prologue / nltgv2.unslot), as they are XLA outside the
-    Pallas call in the JAX package; each iteration is one launch of
-    csrc/nltgv2_smoother.cu. For tensors on the CPU the iterations run
-    the plain version (nltgv2.iterate_plain). For CUDA tensors the
-    kernel runs or the call raises; there is no fallback.
+    Pallas call in the JAX package; all iterations are one cooperative
+    launch of csrc/nltgv2_smoother.cu on the [V, D] tables, a warp per
+    vertex (launch_plan). For tensors on the CPU the iterations run the
+    plain version (nltgv2.iterate_plain). For CUDA tensors the kernel
+    runs or the call raises; there is no fallback.
   * the banded layout the halo kernel (parallel/halo_kernel.py) runs on:
     the host's reverse Cuthill-McKee order (rcm_order) and edge ranks in
     that order (perm_edge_ranks), the device-side (R, 128) vertex and
@@ -21,7 +22,9 @@ Counterpart of flame_tpu/optimize/pallas_smoother.py, in two halves:
     duals.
 """
 
-from typing import NamedTuple
+import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +34,58 @@ from flame_tpu_torch.optimize import nltgv2, topology
 from flame_tpu_torch.params import RegularizerParams
 
 KERNEL = "nltgv2_smoother"
+# The kernel's compile-time shape (csrc/nltgv2_smoother.cu): CTAs of 32
+# warps, a lane per slot for up to 2 slots per lane, 1, 2, 4 or 8 vertices
+# per warp, at most 8 (vertex, slot) groups per lane.
+WARPS_PER_CTA = 32
+MAX_DEGREE = 64
+VERTICES_PER_WARP = (1, 2, 4, 8)
+MAX_GROUPS = 8
+
+
+class LaunchPlan(NamedTuple):
+    slots_per_lane: int  # ceil(D / 32)
+    vertices_per_warp: int
+    grid: int  # CTAs, all resident at once
+
+
+def launch_plan(V: int, D: int, n_sms: int,
+                blocks_per_sm: Callable[[int, int], int]) -> LaunchPlan:
+    """The fewest vertices per warp whose CTAs the card holds resident at
+    once. blocks_per_sm(slots_per_lane, vertices_per_warp) is the CTAs one
+    SM holds of that instantiation (its occupancy). Raises ValueError,
+    naming the limit, for a V or D the kernel cannot hold."""
+    if not 1 <= D <= MAX_DEGREE:
+        raise ValueError(f"{KERNEL}: degree D={D} outside [1, {MAX_DEGREE}]")
+    spl = -(-D // 32)
+    most = 0
+    for vpw in VERTICES_PER_WARP:
+        if spl * vpw > MAX_GROUPS:
+            break
+        cap = n_sms * blocks_per_sm(spl, vpw) * WARPS_PER_CTA * vpw
+        most = max(most, cap)
+        if V <= cap:
+            warps = -(-V // vpw)
+            return LaunchPlan(spl, vpw, -(-warps // WARPS_PER_CTA))
+    raise ValueError(
+        f"{KERNEL}: V={V} vertices of degree {D} do not fit the card at "
+        f"once: at most {most} ({n_sms} SMs, {WARPS_PER_CTA} warps per CTA, "
+        f"at most {MAX_GROUPS // spl} vertices per warp)")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index: int, V: int, D: int) -> LaunchPlan:
+    lib = _kernels.load()
+    props = torch.cuda.get_device_properties(device_index)
+
+    def blocks_per_sm(spl, vpw):
+        with torch.cuda.device(device_index):
+            n = ctypes.c_int()
+            _kernels.check_cuda_error(
+                lib.nltgv2_smoother_occupancy(spl, vpw, ctypes.byref(n)),
+                KERNEL)
+        return n.value
+    return launch_plan(V, D, props.multi_processor_count, blocks_per_sm)
 
 
 def _check(name, t, shape, dtype, device):
@@ -44,7 +99,8 @@ def _check(name, t, shape, dtype, device):
 def iterate(p: RegularizerParams, tables: nltgv2.SlotTables,
             data: torch.Tensor, weight: torch.Tensor, vmask: torch.Tensor,
             state: nltgv2.SmoothState, n_iters: int) -> nltgv2.SmoothState:
-    """n_iters iterations; same contract as nltgv2.iterate_plain."""
+    """n_iters iterations; same contract as nltgv2.iterate_plain. On CUDA
+    one launch for all of them (none for n_iters == 0)."""
     dev = data.device
     if dev.type == "cpu":
         return nltgv2.iterate_plain(p, tables, data, weight, vmask, state,
@@ -53,40 +109,38 @@ def iterate(p: RegularizerParams, tables: nltgv2.SlotTables,
         raise ValueError(f"{KERNEL}: unsupported device {dev}")
     V, D = tables.nbr.shape
     f32 = torch.float32
-    # Kernel layout: slot tables transposed to (D, V) for coalesced reads.
-    nbr = tables.nbr.t().contiguous().int()
-    slot_f = [t.t().contiguous() for t in tables[1:]]
-    q = [t.t().contiguous() for t in state[6:]]
-    x, w1, w2 = (t.contiguous().clone() for t in state[:3])
-    cur = torch.stack(state[3:6]).contiguous()  # (3, V) x_bar w1_bar w2_bar
-    nxt = torch.empty_like(cur)
-    vm = vmask.float().contiguous()
-    for name, t, shape in [("nbr", nbr, (D, V))] + [
-            (n, t, (D, V)) for n, t in zip(
+    nbr = tables.nbr.int()
+    slot_f = [t.contiguous() for t in tables[1:]]
+    q_in = [t.contiguous() for t in state[6:]]
+    for name, t, shape in [("nbr", nbr, (V, D))] + [
+            (n, t, (V, D)) for n, t in zip(
                 ("sdx", "sdy", "sal", "sbe", "sgn", "srcf", "q1", "q2", "q3"),
-                slot_f + q)] + [
+                slot_f + q_in)] + [
             (n, t, (V,)) for n, t in zip(
-                ("x", "w1", "w2", "data", "weight", "vmask"),
-                (x, w1, w2, data, weight, vm))]:
-        _check(name, t, shape, torch.int32 if name == "nbr" else f32, dev)
-    _check("x_bar", cur, (3, V), f32, dev)
+                ("x", "w1", "w2", "x_bar", "w1_bar", "w2_bar", "data",
+                 "weight", "vmask"), (*state[:6], data, weight, vmask))]:
+        dtype = {"nbr": torch.int32, "vmask": torch.bool}.get(name, f32)
+        _check(name, t, shape, dtype, dev)
+    plan = _plan(dev.index, V, D)
+    if n_iters == 0:
+        return state
 
-    lib = _kernels.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for _ in range(n_iters):
-        err = lib.nltgv2_iterate(
-            cur[0].data_ptr(), cur[1].data_ptr(), cur[2].data_ptr(),
-            nxt[0].data_ptr(), nxt[1].data_ptr(), nxt[2].data_ptr(),
-            x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            *(t.data_ptr() for t in q), nbr.data_ptr(),
-            *(t.data_ptr() for t in slot_f),
-            data.data_ptr(), weight.data_ptr(), vm.data_ptr(),
-            V, D, p.step_x, p.step_q, p.theta, p.x_min, p.x_max, stream)
-        _kernels.check_cuda_error(err, KERNEL)
-        _kernels.LAUNCHES[KERNEL] += 1
-        cur, nxt = nxt, cur
-    return nltgv2.SmoothState(x, w1, w2, cur[0], cur[1], cur[2],
-                              q[0].t(), q[1].t(), q[2].t())
+    out = nltgv2.SmoothState(*(torch.empty_like(t) for t in state))
+    scratch = torch.empty((2, V, 4), dtype=f32, device=dev)  # ping-pong bars
+    barrier = torch.empty(64, dtype=torch.int32, device=dev)
+    err = _kernels.load().nltgv2_smoother(
+        *(t.data_ptr() for t in state[3:6]),
+        *(t.data_ptr() for t in state[:3]),
+        *(t.data_ptr() for t in q_in), nbr.data_ptr(),
+        *(t.data_ptr() for t in slot_f),
+        data.data_ptr(), weight.data_ptr(), vmask.data_ptr(),
+        *(t.data_ptr() for t in out), scratch.data_ptr(), barrier.data_ptr(),
+        V, D, n_iters, plan.vertices_per_warp,
+        p.step_x, p.step_q, p.theta, p.x_min, p.x_max,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check_cuda_error(err, KERNEL)
+    _kernels.LAUNCHES[KERNEL] += 1
+    return out
 
 
 def smooth(p: RegularizerParams, g: nltgv2.GraphState,

@@ -3,13 +3,15 @@ on the GPU. They skip without a CUDA device; on a GPU machine without
 jax, run them past tests/conftest.py (which imports jax) with
 `python -m pytest tests/test_torch_kernels.py -q --noconftest`.
 
-Tolerances: the smoother kernel sums a vertex's slots in another order
-than torch (rtol 2e-4 / atol 5e-5 after 40 iterations, the
-tests/test_pallas_smoother.py bound), and both copies of every edge's
-duals stay bit-equal. So for the halo kernel K3, whose outputs are also
-bit-equal for every number of partitions. The raster kernels' inside
-test (one view, and B views after one shared binning) is exact on
-truncated vertices (identical NaN masks) and their values agree to 1e-5.
+Tolerances: the smoother kernel K1 (one launch per call) sums a
+vertex's slots in another order than torch (rtol 2e-4 / atol 5e-5 after
+40 iterations, the tests/test_pallas_smoother.py bound), and both copies
+of every edge's duals stay bit-equal. So for the halo kernel K3, whose
+outputs are also bit-equal for every number of partitions. The raster
+kernels' inside test (one view with its binning on the device, and B
+views after one shared binning) is exact on truncated vertices
+(identical NaN masks), their values agree to 1e-5, and the one-view
+kernel's largest per-tile count equals the plain binning's.
 """
 
 import numpy as np
@@ -39,9 +41,9 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module")
-def graph(cuda):
-    rng = np.random.default_rng(5)
+def _graph(cuda, V=V, E=E, D=D, W=W, H=H, seed=5):
+    """A seeded Delaunay graph of V points over W x H with degree D."""
+    rng = np.random.default_rng(seed)
     pts = rng.uniform([2, 2], [W - 2, H - 2], (V, 2)).astype(np.float32)
     tri = delaunay.triangulate(pts)
     edges = tri.edges.astype(np.int64)
@@ -71,6 +73,11 @@ def graph(cuda):
     return g, t(tri.triangles.astype(np.int64))
 
 
+@pytest.fixture(scope="module")
+def graph(cuda):
+    return _graph(cuda)
+
+
 def _iterate_args(g):
     p = RegularizerParams()
     tables, state = nltgv2.slot_prologue(g)
@@ -78,24 +85,52 @@ def _iterate_args(g):
             .contiguous(), g.vtx_mask), state
 
 
-def test_smoother_kernel_matches_plain(graph):
-    g, _ = graph
+def _check_smoother(g, n_iters):
+    """K1 against the plain iterations: one launch, rtol 2e-4 / atol 5e-5,
+    and both copies of every edge's duals bit-equal."""
     args, state = _iterate_args(g)
     before = _kernels.LAUNCHES["nltgv2_smoother"]
-    out_k = smoother_kernel.iterate(*args, state, 40)
-    assert _kernels.LAUNCHES["nltgv2_smoother"] == before + 40
-    out_p = nltgv2.iterate_plain(*args, state, 40)
+    out_k = smoother_kernel.iterate(*args, state, n_iters)
+    assert _kernels.LAUNCHES["nltgv2_smoother"] == before + 1
+    out_p = nltgv2.iterate_plain(*args, state, n_iters)
     for name, a, b in zip(nltgv2.SmoothState._fields, out_k, out_p):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=5e-5, msg=name)
     tables = args[1]
     src = tables.srcf > 0
     dst = tables.sgn < 0
+    n_e = g.q1.shape[0]
     for q in out_k[6:]:
-        a = torch.zeros(E, device=q.device)
-        b = torch.zeros(E, device=q.device)
+        a = torch.zeros(n_e, device=q.device)
+        b = torch.zeros(n_e, device=q.device)
         a[g.inc_edge[src]] = q[src]
         b[g.inc_edge[dst]] = q[dst]
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_iters", [1, 3, 40])
+def test_smoother_kernel_matches_plain(graph, n_iters):
+    _check_smoother(graph[0], n_iters)
+
+
+def test_smoother_kernel_two_vertices_per_warp(cuda):
+    """1024x768 with 8192 vertices (the XGA row), D=16: more warps than
+    the card holds at once, so each warp takes two vertices."""
+    g, _ = _graph(cuda, V=8192, E=3 * 8192, D=16, W=1024, H=768, seed=6)
+    plan = smoother_kernel._plan(cuda.index or 0, 8192, 16)
+    assert plan.vertices_per_warp >= 2
+    _check_smoother(g, 40)
+
+
+def test_smoother_kernel_rejects_what_the_card_cannot_hold(cuda):
+    V_big, D_big = 40000, 64
+    z = torch.zeros((V_big, D_big), device=cuda)
+    tables = nltgv2.SlotTables(torch.zeros((V_big, D_big), dtype=torch.int64,
+                                           device=cuda), z, z, z, z, z, z)
+    v = torch.zeros(V_big, device=cuda)
+    state = nltgv2.SmoothState(v, v, v, v, v, v, z, z, z)
+    with pytest.raises(ValueError, match="do not fit the card"):
+        smoother_kernel.iterate(RegularizerParams(), tables, v, v,
+                                v > 0, state, 40)
 
 
 def test_smoother_full_smooth_matches_plain(graph):
@@ -154,24 +189,49 @@ def test_halo_kernel_independent_of_partitions(graph):
             assert torch.equal(a, b)
 
 
-def test_raster_kernel_matches_plain(graph):
-    g, tris = graph
-    vals = torch.rand(V, device=tris.device) + 0.5
-    valid = torch.ones(tris.shape[0], dtype=torch.bool, device=tris.device)
-    # Uniform random points are denser per tile than a detection-grid
-    # mesh; 256 candidates keep every overlap, so the brute force agrees.
-    cand = rasterize.tile_candidates(g.pos, tris, vals, valid, H, W,
-                                     max_per_tile=256)
-    assert int(cand.max_count) <= 256
-    before = _kernels.LAUNCHES["raster_tiles"]
-    out_k = rasterize.finish(raster_kernel.rasterize_tiles(cand.cdata), H, W)
-    assert _kernels.LAUNCHES["raster_tiles"] == before + 1
+def _check_raster(pos, tris, vals, valid, max_per_tile):
+    """K2 through rasterize_with_count against the plain rasterizer: one
+    launch, equal NaN masks, values to 1e-5, equal largest count."""
+    cand = rasterize.tile_candidates(pos, tris, vals, valid, H, W,
+                                     max_per_tile=max_per_tile)
+    before = _kernels.LAUNCHES["raster_mesh"]
+    out_k, count = raster_kernel.rasterize_with_count(
+        pos, tris, vals, valid, H, W, max_per_tile=max_per_tile)
+    assert _kernels.LAUNCHES["raster_mesh"] == before + 1
     out_p = rasterize.finish(rasterize.eval_tiles(cand.cdata), H, W)
     assert torch.equal(torch.isnan(out_k), torch.isnan(out_p))
     m = ~torch.isnan(out_k)
     torch.testing.assert_close(out_k[m], out_p[m], rtol=0, atol=1e-5)
+    assert int(count) == int(cand.max_count)
+    return out_k, int(count)
+
+
+def test_raster_kernel_matches_plain(graph):
+    g, tris = graph
+    vals = torch.rand(V, device=tris.device) + 0.5
+    valid = torch.rand(tris.shape[0], device=tris.device) > 0.02
+    # Uniform random points are denser per tile than a detection-grid
+    # mesh; 256 candidates keep every overlap, so the brute force agrees.
+    out_k, count = _check_raster(g.pos, tris, vals, valid, 256)
+    assert count <= 256
     ref = rasterize.rasterize_bruteforce(g.pos, tris, vals, valid, H, W)
     assert torch.equal(torch.isnan(ref), torch.isnan(out_k))
+
+
+def test_raster_kernel_overflow_keeps_the_plain_candidates(cuda):
+    """A tile with more than 160 overlapping triangles keeps the 160 of
+    the highest index, as the plain binning (and the TPU kernel's
+    top_k) does."""
+    rng = np.random.default_rng(9)
+    pts = np.concatenate([rng.uniform([2, 2], [W - 2, H - 2], (600, 2)),
+                          rng.uniform([132, 36], [250, 60], (400, 2))])
+    tri = delaunay.triangulate(pts.astype(np.float32))
+    pos = torch.as_tensor(pts, dtype=torch.float32, device=cuda)
+    tris = torch.as_tensor(tri.triangles.astype(np.int64), device=cuda)
+    vals = torch.rand(pts.shape[0], device=cuda) + 0.5
+    valid = torch.ones(tris.shape[0], dtype=torch.bool, device=cuda)
+    _, count = _check_raster(pos, tris, vals, valid, 160)
+    assert count > 160
 
 
 def test_raster_batch_kernel_matches_plain(graph):
@@ -217,10 +277,13 @@ def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):
     halo_kernel.iterate(RegularizerParams(), 3, D, 2, 2, lay.vtx, lay.slots)
     vals = torch.ones(V, device=tris.device)
     valid = torch.ones(tris.shape[0], dtype=torch.bool, device=tris.device)
-    raster_kernel.rasterize(g.pos, tris, vals, valid, H, W)
     raster_kernel.rasterize_batch(g.pos[None].repeat(2, 1, 1), tris,
                                   vals[None].repeat(2, 1),
                                   valid[None].repeat(2, 1), H, W)
+    # The single view bins on the device: no torch binning either.
+    monkeypatch.setattr(rasterize, "_bin_tiles", forbidden)
+    monkeypatch.setattr(rasterize, "tile_candidates", forbidden)
+    raster_kernel.rasterize(g.pos, tris, vals, valid, H, W)
     torch.cuda.synchronize()
 
 
@@ -230,9 +293,10 @@ def test_wrappers_reject_bad_inputs(graph):
     bad = state._replace(x=state.x.double())
     with pytest.raises(ValueError):
         smoother_kernel.iterate(*args, bad, 1)
-    with pytest.raises(ValueError):
-        raster_kernel.rasterize_tiles(
-            torch.zeros((2, 2, 8, 15), device=g.x.device))
+    with pytest.raises(ValueError):  # rows of 15 floats
+        raster_kernel.raster_mesh(torch.zeros((8, 15), device=g.x.device),
+                                  torch.zeros((8, 4), device=g.x.device),
+                                  H, W)
     with pytest.raises(ValueError):  # a single view's 4-d candidates
         raster_kernel.rasterize_tiles_batch(
             torch.zeros((2, 2, 8, 16), device=g.x.device))

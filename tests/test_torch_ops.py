@@ -1,5 +1,5 @@
 """flame_tpu_torch image ops and the tile rasterizer (the module of the
-raster_tiles CUDA kernel) against the JAX package, on the CPU.
+raster_mesh CUDA kernel) against the JAX package, on the CPU.
 
 Bilinear sampling, central gradients and Liang-Barsky are the same
 float32 formulas (atol 1e-5 on values up to 255). The rasterizer's plain
