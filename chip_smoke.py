@@ -18,14 +18,19 @@ Phases (any failure raises and the script exits non-zero):
      rasterize.rasterize on the 640x480 mesh and on a mesh with a tile of
      more than 160 overlapping triangles: equal NaN masks, values, and
      largest per-tile count;
-  5. the batched tile rasterizer kernel (K2b) against its plain version
-     on 8 views of that mesh (shifted and scaled per view, per-view
-     values, one view with invalidated triangles) after one shared
-     binning pass;
-  5b. the halo smoother kernel (K3) on that graph in the RCM-banded
-     layout (reach 3, 40 iterations) at 1, 2, 4 and 8 partitions of the
-     card: against its plain version, bit-equal across the partition
-     counts (the strips arrive right) and with bit-equal dual copies;
+  5. the batched rasterizer kernel (K2b, raster_mesh_batch: one union
+     binning per tile for all views and the tile passes in one launch)
+     through raster_kernel.rasterize_batch_with_count against the plain
+     union binning + eval_tiles_batch on 8 views of that mesh (shifted
+     and scaled per view, per-view values, one view with invalidated
+     triangles) and on 8 views of a mesh whose densest tile's union count
+     passes 192: equal NaN masks, values and largest union count;
+  5b. the halo smoother kernel (K3, a thread-block cluster per partition)
+     on that graph in the RCM-banded layout (reach 3, 40 iterations) at
+     1, 2, 4 and 8 partitions of the card, with each launch plan (CTAs per
+     cluster, vertices per warp, clusters the card holds): against its
+     plain version, bit-equal across the partition counts (the strips
+     arrive right) and with bit-equal dual copies;
   6. the synchronous path: flame_tpu_torch.Flame at 640x480 with 4096
      features on a synthetic textured plane at 5 m, 30 frames, every
      second one a poseframe; K1 and K2 must run on every frame that
@@ -108,15 +113,20 @@ def smoother_bound(V, D, live_slots, members, n_iters, slot_words):
     return bound(nbytes, ops)
 
 
-def raster_bound(cdata, out):
-    """cdata read once, the map written once; the operations of its valid
-    candidates over their tiles' pixels and of its covered pixels."""
-    tile_px = out.shape[-2] // cdata.shape[-4] * out.shape[-1] \
-        // cdata.shape[-3]
-    pairs = int((cdata[..., 13] > 0).sum()) * tile_px
-    covered = int((out > -1e38).sum())
-    return bound(4 * (cdata.numel() + out.numel()),
-                 RASTER_PAIR_OPS * pairs + RASTER_PIXEL_OPS * covered)
+def _tile_pairs(kvals, bbox, ok, nty, ntx, tile_h):
+    """Candidate-pixel pairs: each kept candidate (kvals >= 0) that is
+    valid (ok) over the pixels of its (T, 4) bbox within its tile."""
+    from flame_tpu_torch.ops import rasterize
+    t = kvals.clamp(min=0)
+    tid = torch.arange(nty * ntx, device=kvals.device)[:, None]
+    tx = (tid % ntx * rasterize.TILE_W).float()
+    ty = (tid // ntx * tile_h).float()
+    nx = torch.minimum(torch.floor(bbox[t, 1]), tx + rasterize.TILE_W - 1) \
+        - torch.maximum(torch.ceil(bbox[t, 0]), tx) + 1
+    ny = torch.minimum(torch.floor(bbox[t, 3]), ty + tile_h - 1) \
+        - torch.maximum(torch.ceil(bbox[t, 2]), ty) + 1
+    keep = (kvals >= 0) & ok[t]
+    return int((nx.clamp(min=0) * ny.clamp(min=0) * keep).sum())
 
 
 def mesh_bound(packed, bbox, grid, H, W, tile_h=32, max_per_tile=160):
@@ -127,19 +137,33 @@ def mesh_bound(packed, bbox, grid, H, W, tile_h=32, max_per_tile=160):
     from flame_tpu_torch.ops import rasterize
     T = packed.shape[0]
     nty, ntx = grid.shape[0] // tile_h, grid.shape[1] // rasterize.TILE_W
-    kvals, _ = rasterize._bin_tiles(bbox.unbind(1), packed[:, 13] > 0, H, W,
-                                    tile_h, min(max_per_tile, T))
-    t = kvals.clamp(min=0)
-    tid = torch.arange(nty * ntx, device=grid.device)[:, None]
-    tx = (tid % ntx * rasterize.TILE_W).float()
-    ty = (tid // ntx * tile_h).float()
-    nx = torch.minimum(torch.floor(bbox[t, 1]), tx + rasterize.TILE_W - 1) \
-        - torch.maximum(torch.ceil(bbox[t, 0]), tx) + 1
-    ny = torch.minimum(torch.floor(bbox[t, 3]), ty + tile_h - 1) \
-        - torch.maximum(torch.ceil(bbox[t, 2]), ty) + 1
-    pairs = int((nx.clamp(min=0) * ny.clamp(min=0) * (kvals >= 0)).sum())
+    ok = packed[:, 13] > 0
+    kvals, _ = rasterize._bin_tiles(bbox.unbind(1), ok, H, W, tile_h,
+                                    min(max_per_tile, T))
+    pairs = _tile_pairs(kvals, bbox, ok, nty, ntx, tile_h)
     covered = int((grid > -1e38).sum())
     return bound(4 * (packed.numel() + bbox.numel() + grid.numel()),
+                 RASTER_BIN_OPS * T * nty * ntx + RASTER_PAIR_OPS * pairs
+                 + RASTER_PIXEL_OPS * covered)
+
+
+def batch_bound(packed, bbox, grids, H, W, tile_h=32, max_per_tile=192):
+    """K2b, as mesh_bound per view and summed over the B views: the
+    per-view rows and bboxes read once, the B maps written once; the one
+    union binning of every (tile, triangle), and per view the operations
+    of each kept candidate valid in that view over the pixels of its bbox
+    in that view within its tile, and of the covered pixels."""
+    from flame_tpu_torch.ops import rasterize
+    B, T = packed.shape[:2]
+    nty, ntx = grids.shape[1] // tile_h, grids.shape[2] // rasterize.TILE_W
+    ok = packed[..., 13] > 0
+    kvals, _ = rasterize._bin_tiles(
+        rasterize.union_boxes(ok, bbox.unbind(-1)), ok.any(0), H, W, tile_h,
+        min(max_per_tile, T))
+    pairs = sum(_tile_pairs(kvals, bbox[b], ok[b], nty, ntx, tile_h)
+                for b in range(B))
+    covered = int((grids > -1e38).sum())
+    return bound(4 * (packed.numel() + bbox.numel() + grids.numel()),
                  RASTER_BIN_OPS * T * nty * ntx + RASTER_PAIR_OPS * pairs
                  + RASTER_PIXEL_OPS * covered)
 
@@ -399,48 +423,83 @@ def check_raster(g, tris_np, W=640, H=480):
 
 
 def check_raster_batch(g, tris_np, W=640, H=480, B=8):
+    """K2b through raster_kernel.rasterize_batch_with_count against the
+    plain union binning + eval_tiles_batch on B views of the bench mesh
+    and of an overflowing one; times of the one launch and of the whole
+    call on the bench batch."""
+    from flame_tpu_torch import _kernels
     from flame_tpu_torch.ops import raster_kernel, rasterize
     dev = g.x.device
     rng = np.random.default_rng(SEED + 2)
-    V, T = g.x.shape[0], tris_np.shape[0]
-    tris = torch.as_tensor(tris_np, device=dev)
-    # Per-view positions: translated and slightly scaled, as a camera
-    # moving through a batch sees the batch-start mesh.
-    verts = torch.stack([g.pos * (1.0 + 0.01 * b) + torch.tensor(
-        [3.0 * b, -2.0 * b], device=dev) for b in range(B)])
-    vals = torch.as_tensor(rng.uniform(0.5, 2.0, (B, V)), dtype=torch.float32,
-                           device=dev)
-    valid_np = np.ones((B, T), bool)
-    valid_np[3, rng.integers(0, T, T // 10)] = False
-    valid = torch.as_tensor(valid_np, device=dev)
-    cand = rasterize.tile_candidates_batch(
-        verts, tris, vals, valid, H, W,
-        max_per_tile=raster_kernel.MAX_PER_TILE_BATCH)
-    cd = cand.cdata.contiguous()
-    out_k = rasterize.finish(raster_kernel.rasterize_tiles_batch(cd), H, W)
-    out_p = rasterize.finish(rasterize.eval_tiles_batch(cd), H, W)
-    torch.cuda.synchronize()
-    nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
-    if not torch.equal(nan_k, nan_p):
-        raise AssertionError(f"batched raster NaN masks differ at "
-                             f"{int((nan_k != nan_p).sum())} pixels")
-    m = ~nan_k
-    err = (out_k[m] - out_p[m]).abs().max().item()
-    if err > K2_ATOL:
-        raise AssertionError(f"batched raster max|kernel-plain| {err} > "
-                             f"{K2_ATOL}")
-    k_ms = _cuda_ms(lambda: raster_kernel.rasterize_tiles_batch(cd), 50)
-    p_ms = _cuda_ms(lambda: rasterize.eval_tiles_batch(cd), 5)
-    e2e_ms = _cuda_ms(lambda: raster_kernel.rasterize_batch(
-        verts, tris, vals, valid, H, W), 20)
-    print(f"K2b raster_tiles_batch B={B} {W}x{H} T={T}: max|kernel-plain| "
-          f"{err:.3g} (atol {K2_ATOL}), NaN masks equal, coverage "
-          f"{m.float().mean().item():.4f}; max union candidates per tile "
-          f"{int(cand.max_count)} of {raster_kernel.MAX_PER_TILE_BATCH}")
-    print(f"K2b time: kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms; "
-          f"with setup and binning {e2e_ms:.4f} ms (all {B} views)")
-    b = raster_bound(cd, raster_kernel.rasterize_tiles_batch(cd))
-    print(f"K2b bound: {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    cap = raster_kernel.MAX_PER_TILE_BATCH
+    err, batches = 0.0, {}
+    for label, (pos, tris) in (
+            ("bench batch", (g.pos, torch.as_tensor(tris_np, device=dev))),
+            ("overflow batch", overflow_mesh(dev, W, H))):
+        T = tris.shape[0]
+        # Per-view positions: translated and slightly scaled, as a camera
+        # moving through a batch sees the batch-start mesh.
+        verts = torch.stack([pos * (1.0 + 0.01 * b) + torch.tensor(
+            [3.0 * b, -2.0 * b], device=dev) for b in range(B)])
+        vals = torch.as_tensor(rng.uniform(0.5, 2.0, (B, pos.shape[0])),
+                               dtype=torch.float32, device=dev)
+        valid_np = np.ones((B, T), bool)
+        valid_np[3, rng.integers(0, T, T // 10)] = False
+        valid = torch.as_tensor(valid_np, device=dev)
+        batches[label] = (verts, tris, vals, valid)
+        before = _kernels.LAUNCHES["raster_mesh_batch"]
+        out_k, count_k = raster_kernel.rasterize_batch_with_count(
+            verts, tris, vals, valid, H, W)
+        launches = _kernels.LAUNCHES["raster_mesh_batch"] - before
+        cand = rasterize.tile_candidates_batch(verts, tris, vals, valid, H,
+                                               W, max_per_tile=cap)
+        out_p = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata), H,
+                                 W)
+        count_p = int(cand.max_count)
+        torch.cuda.synchronize()
+        nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
+        if not torch.equal(nan_k, nan_p):
+            raise AssertionError(f"batched raster {label}: NaN masks differ "
+                                 f"at {int((nan_k != nan_p).sum())} pixels")
+        m = ~nan_k
+        e = (out_k[m] - out_p[m]).abs().max().item()
+        if e > K2_ATOL or int(count_k) != count_p or launches != 1:
+            raise AssertionError(
+                f"batched raster {label}: max|kernel-plain| {e} (atol "
+                f"{K2_ATOL}), max union count {int(count_k)} vs plain "
+                f"{count_p}, {launches} launches")
+        if label == "overflow batch" and count_p <= cap:
+            raise AssertionError(f"batched raster {label}: no tile "
+                                 f"overflows")
+        err = max(err, e)
+        print(f"K2b raster_mesh_batch {label} B={B} {W}x{H} T={T}: "
+              f"max|kernel-plain| {e:.3g} (atol {K2_ATOL}), NaN masks "
+              f"equal, coverage {m.float().mean().item():.4f}; max union "
+              f"candidates per tile {int(count_k)} = plain's (max_per_tile "
+              f"{cap}); {launches} launch")
+    verts, tris, vals, valid = batches["bench batch"]
+    packed, bbox = raster_kernel.mesh_inputs(verts, tris, vals, valid)
+
+    def launch():
+        return raster_kernel.raster_mesh_batch(packed, bbox, H, W)
+
+    def whole():
+        return raster_kernel.rasterize_batch(verts, tris, vals, valid, H, W)
+    k_ms = _device_ms(launch, 50)
+    k_back_ms = _cuda_ms(launch, 50)
+    e2e_ms = _device_ms(whole, 20)
+    e2e_back_ms = _cuda_ms(whole, 20)
+    p_ms = _cuda_ms(lambda: rasterize.rasterize_batch(
+        verts, tris, vals, valid, H, W, max_per_tile=cap), 3)
+    print(f"K2b time: the launch {k_ms:.4f} ms on the card, union binning "
+          f"included ({k_back_ms:.4f} ms back to back, wrapper included); "
+          f"the whole rasterize_batch call "
+          f"(setup, launch, finish) {e2e_ms:.4f} ms on the card, "
+          f"{e2e_back_ms:.4f} ms back to back; plain rasterize_batch "
+          f"(setup, union binning, eval_tiles_batch) {p_ms:.4f} ms "
+          f"(all {B} views)")
+    b = batch_bound(packed, bbox, launch()[0], H, W)
+    print(f"K2b bound: {b['bound_ms']:.6f} ms ({b['bound_by']})")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
 
 
@@ -507,12 +566,17 @@ def check_halo(g, k1, n_iters=40, reach=K3_REACH):
             raise AssertionError(f"halo dual copies differ: "
                                  f"{int((s != d).sum())} of "
                                  f"{int(alive.sum())}")
-    k_ms, p_ms = {}, {}
+    k_ms, k_back_ms, p_ms = {}, {}, {}
     for n in K3_PARTS:
-        k_ms[n] = _cuda_ms(lambda: halo_kernel.iterate(
-            p, n_iters, D, reach, n, lay.vtx, lay.slots), 20)
+        def kernel():
+            return halo_kernel.iterate(p, n_iters, D, reach, n, lay.vtx,
+                                       lay.slots)
+        k_ms[n] = _device_ms(kernel, 20)
+        k_back_ms[n] = _cuda_ms(kernel, 20)
         p_ms[n] = _cuda_ms(lambda: halo_kernel.iterate_plain(
             p, n_iters, D, reach, n, lay.vtx, lay.slots), 3)
+    plans = {n: halo_kernel._plan(g.x.device.index or 0, V, D, n, reach)
+             for n in K3_PARTS}
     R = V // 128
     print(f"K3 halo_smoother V={V} D={D} R={R} reach={reach} "
           f"iters={n_iters} live edges {int(alive.sum())} "
@@ -521,11 +585,19 @@ def check_halo(g, k1, n_iters=40, reach=K3_REACH):
           + f" (rtol {K1_TOL['rtol']}, atol {K1_TOL['atol']}); outputs at "
           f"n={K3_PARTS[1:]} bit-equal to n=1; {int(alive.sum())} dual "
           f"pairs bit-equal")
-    print("K3 time us/iter (one launch for all iterations, wrapper "
+    print("K3 launch plan (CTAs of 1024 threads): "
+          + ", ".join(f"n={n} {q.clusters} clusters of {q.cluster} CTAs "
+                      f"({q.splits} per partition), {q.vertices_per_warp} "
+                      f"vertices per warp, the card holds "
+                      f"{q.max_active_clusters} such clusters"
+                      for n, q in plans.items()))
+    print("K3 time per call (one launch for all iterations, wrapper "
           "included): "
-          + ", ".join(f"n={n} kernel {1000 * k_ms[n] / n_iters:.2f} plain "
-                      f"{1000 * p_ms[n] / n_iters:.2f}" for n in K3_PARTS)
-          + f"; K1 kernel {1000 * k1['ms'] / n_iters:.2f}, plain "
+          + ", ".join(f"n={n} kernel {k_ms[n]:.4f} ms on the card "
+                      f"({1000 * k_ms[n] / n_iters:.2f} us/iter; "
+                      f"{k_back_ms[n]:.4f} ms back to back), plain "
+                      f"{p_ms[n]:.4f} ms" for n in K3_PARTS)
+          + f"; K1 kernel {1000 * k1['ms'] / n_iters:.2f} us/iter, plain "
           f"{1000 * k1['plain_ms'] / n_iters:.2f}")
     b = smoother_bound(V, D, 2 * int(alive.sum()), int(g.vtx_mask.sum()),
                        n_iters, 14)
@@ -775,9 +847,9 @@ def throughput_path(smi, mode, n_frames=96, sharded=False):
     n_post = len(fl.stats.device_times_ms().get("sync_graph", []))
     evictions = int(fl.stats.stats("pf_evictions"))
     if not (fl._dispatches >= 1
-            and launches["raster_tiles_batch"] == fl._dispatches):
-        raise AssertionError(f"{mode}: raster_tiles_batch launches "
-                             f"{launches['raster_tiles_batch']} vs "
+            and launches["raster_mesh_batch"] == fl._dispatches):
+        raise AssertionError(f"{mode}: raster_mesh_batch launches "
+                             f"{launches['raster_mesh_batch']} vs "
                              f"{fl._dispatches} batched steps")
     per_step = step_launches(sharded)
     if any(launches[k] != v * n_post for k, v in per_step.items()) \
@@ -841,10 +913,10 @@ def main():
              source="flame_tpu_torch/csrc/raster.cu",
              replaces="flame_tpu/ops/pallas_raster.py:161",
              launches=launches["raster_mesh"], **k2),
-        dict(name="raster_tiles_batch", route="cuda",
+        dict(name="raster_mesh_batch", route="cuda",
              source="flame_tpu_torch/csrc/raster.cu",
              replaces="flame_tpu/ops/pallas_raster.py:233",
-             launches=launches["raster_tiles_batch"], **k2b),
+             launches=launches["raster_mesh_batch"], **k2b),
         dict(name="halo_smoother", route="cuda",
              source="flame_tpu_torch/csrc/halo_smoother.cu",
              replaces="flame_tpu/parallel/pallas_halo.py:269",

@@ -13,9 +13,11 @@ with the compiler's output.
 The entries: nltgv2_smoother (K1, every smoother iteration in one
 cooperative launch) with nltgv2_smoother_occupancy (its CTAs per SM, for
 the wrapper's launch plan); raster_mesh (K2, one view's binning and tile
-pass in one launch) and raster_tiles_batch (K2b, B views after a binning
-in torch); halo_smoother (K3, one cooperative launch for every partition
-and iteration). Each returns its cudaError_t.
+pass in one launch) and raster_mesh_batch (K2b, the same for B views, one
+union binning per tile for all of them); halo_smoother (K3, one launch
+for every partition and iteration, a thread-block cluster per partition)
+with halo_smoother_occupancy (the clusters the card holds at once, for
+the wrapper's launch plan). Each returns its cudaError_t.
 
 Each wrapper adds one to its entry of LAUNCHES per kernel launch; a run
 reads the counts to show that its path went through the kernels.
@@ -38,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launches().
-LAUNCHES = {"nltgv2_smoother": 0, "raster_mesh": 0, "raster_tiles_batch": 0,
+LAUNCHES = {"nltgv2_smoother": 0, "raster_mesh": 0, "raster_mesh_batch": 0,
             "halo_smoother": 0}
 
 # Filled by load(): wall seconds of the parallel build (0 when every
@@ -127,21 +129,25 @@ def load() -> types.SimpleNamespace:
         smoother.nltgv2_smoother_occupancy.argtypes = [I, I, P]
         raster.raster_mesh.restype = I
         raster.raster_mesh.argtypes = [P, P, I, P, P, I, I, I, I, P]
-        raster.raster_tiles_batch.restype = I
-        raster.raster_tiles_batch.argtypes = [P, P, I, I, I, I, I, P]
+        raster.raster_mesh_batch.restype = I
+        raster.raster_mesh_batch.argtypes = [P, P, I, I, P, P, I, I, I, I, P]
         halo.halo_smoother.restype = I
         halo.halo_smoother.argtypes = (
             [P] * 9           # x w1 w2 xb w1b w2b (in/out), data weight vmask
             + [P] * 8         # nbr rowflag sdx sdy sal sbe sgn srcf
             + [P] * 5         # q1 q2 q3 (in/out), rx, flags
-            + [I] * 5 + [F] * 6 + [P])
+            + [I] * 7         # n rb d reach n_iters cluster vpw
+            + [F] * 6 + [P])  # step_x ... data_factor, stream
+        halo.halo_smoother_occupancy.restype = I
+        halo.halo_smoother_occupancy.argtypes = [I, I, I, P]
         BUILD_INFO["libraries"] = list(paths.values())
         _lib = types.SimpleNamespace(
             nltgv2_smoother=smoother.nltgv2_smoother,
             nltgv2_smoother_occupancy=smoother.nltgv2_smoother_occupancy,
             raster_mesh=raster.raster_mesh,
-            raster_tiles_batch=raster.raster_tiles_batch,
-            halo_smoother=halo.halo_smoother)
+            raster_mesh_batch=raster.raster_mesh_batch,
+            halo_smoother=halo.halo_smoother,
+            halo_smoother_occupancy=halo.halo_smoother_occupancy)
         return _lib
 
 

@@ -23,7 +23,6 @@ from flame_tpu_torch.core.frame import Frame, FrameStack
 from flame_tpu_torch.geometry import epipolar, se3
 from flame_tpu_torch.mesh import filters as mesh_filters
 from flame_tpu_torch.ops import raster_kernel
-from flame_tpu_torch.ops import rasterize as raster
 from flame_tpu_torch.optimize import nltgv2, smoother_kernel
 from flame_tpu_torch.optimize import topology as topo_mod
 from flame_tpu_torch.parallel import halo, halo_kernel, sharding
@@ -627,8 +626,9 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
     Each frame gets its own dense map: the batch-start mesh (vertex
     pixels of the sync frame, the previous batch's last frame) is
     projected into every frame's view and all B maps are rasterized up
-    front with one shared binning pass (rasterize.tile_candidates_batch,
-    then the CUDA kernel K2b on the GPU). Frame b's detection seeds from
+    front with one shared binning pass
+    (raster_kernel.rasterize_batch_with_count: on the GPU one launch of
+    the CUDA kernel K2b, binning included). Frame b's detection seeds from
     frame b-1's map (frame 0 from seed_map, the previous output map), and
     a poseframe stashes its own map into the stack. The JAX package runs
     the frames as a lax.scan with masked inserts; here they are a Python
@@ -661,11 +661,8 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
         pos_views, id_views, tri_ok_views = project_views(
             K, Kinv, graph, graph_scale, sync_q, sync_t, qs, ts, tris,
             topo["n_tris"])
-        cand = raster.tile_candidates_batch(
-            pos_views, tris, id_views, tri_ok_views, height, width,
-            max_per_tile=raster_kernel.MAX_PER_TILE_BATCH)
-        dense_views = raster.finish(raster_kernel.rasterize_tiles_batch(
-            cand.cdata.contiguous()), height, width)
+        dense_views, max_union = raster_kernel.rasterize_batch_with_count(
+            pos_views, tris, id_views, tri_ok_views, height, width)
 
     with timed("update_idepths"):
         pq, pt = prev_q, prev_t
@@ -695,7 +692,7 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
             dense_views[-1] if params.init_with_prediction else None,
             mesh=mesh, timed=timed, **topo)
     return (f, stack, feats, curr, member, stats, packed) + post \
-        + (cand.max_count,)
+        + (max_union,)
 
 
 def mesh_outputs(params: Params, K, Kinv, width: int, height: int, graph,

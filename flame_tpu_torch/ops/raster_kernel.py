@@ -6,9 +6,10 @@ Counterpart of flame_tpu/ops/pallas_raster.py::rasterize and
   * One view: csrc/raster.cu's raster_mesh bins the triangles to 32x128
     tiles and max-combines each tile's candidates in one launch, one CTA
     per tile (plain version: rasterize.bin_rows + eval_tiles).
-  * B views: the shared union-bbox binning is plain torch
-    (rasterize.tile_candidates_batch), the per-tile max-combine
-    csrc/raster.cu's raster_tiles_batch, one CTA per tile and view.
+  * B views: csrc/raster.cu's raster_mesh_batch does the same for all
+    views in one launch, one CTA per tile and view, the views of a tile
+    in a thread-block cluster that bins once over the union bboxes
+    (plain version: rasterize.tile_candidates_batch + eval_tiles_batch).
 
 For tensors on the CPU the plain versions run. For CUDA tensors the
 kernel runs or the call raises; there is no fallback.
@@ -20,7 +21,7 @@ from flame_tpu_torch import _kernels
 from flame_tpu_torch.ops import rasterize as plain
 
 KERNEL = "raster_mesh"
-KERNEL_BATCH = "raster_tiles_batch"
+KERNEL_BATCH = "raster_mesh_batch"
 MAX_PER_TILE = 160
 MAX_PER_TILE_BATCH = 192  # union bboxes grow with the motion in a batch
 # raster_mesh keeps K1 candidates of 68 bytes each in shared memory (at
@@ -35,10 +36,31 @@ def _check_tile_h(name: str, tile_h: int):
 
 def mesh_inputs(verts, tris, vals, tri_valid, truncate: bool = True):
     """raster_mesh's inputs: the (T, 16) triangle rows and the (T, 4)
-    [xmin, xmax, ymin, ymax] bboxes of rasterize._packed_rows."""
+    [xmin, xmax, ymin, ymax] bboxes of rasterize._packed_rows; with
+    leading view dimensions (verts (B, V, 2)) raster_mesh_batch's."""
     packed, _, bbox = plain._packed_rows(verts, tris, vals, tri_valid,
                                          truncate)
-    return packed, torch.stack(bbox, dim=1)
+    return packed, torch.stack(bbox, dim=-1)
+
+
+def _check_rows(name, packed, bbox, shape):
+    for arg, t, cols in (("packed", packed, 16), ("bbox", bbox, 4)):
+        want = shape + (cols,)
+        if t.device.type != "cuda" or t.device != packed.device \
+                or t.dtype != torch.float32 or tuple(t.shape) != want \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {arg} must be a contiguous, 16-byte aligned "
+                f"float32 {want} tensor on a CUDA device, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _k1(name, max_per_tile, T):
+    k1 = min(max_per_tile, T)
+    if k1 > MAX_K1:
+        raise ValueError(f"{name}: max_per_tile {k1} exceeds the "
+                         f"{MAX_K1} candidates a CTA holds")
+    return k1
 
 
 def raster_mesh(packed: torch.Tensor, bbox: torch.Tensor, height: int,
@@ -52,18 +74,8 @@ def raster_mesh(packed: torch.Tensor, bbox: torch.Tensor, height: int,
     _check_tile_h(KERNEL, tile_h)
     dev = packed.device
     T = packed.shape[0]
-    for name, t, cols in (("packed", packed, 16), ("bbox", bbox, 4)):
-        if t.device.type != "cuda" or t.device != dev \
-                or t.dtype != torch.float32 or tuple(t.shape) != (T, cols) \
-                or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(
-                f"{KERNEL}: {name} must be a contiguous, 16-byte aligned "
-                f"float32 ({T}, {cols}) tensor on a CUDA device, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    k1 = min(max_per_tile, T)
-    if k1 > MAX_K1:
-        raise ValueError(f"{KERNEL}: max_per_tile {k1} exceeds the "
-                         f"{MAX_K1} candidates a CTA holds")
+    _check_rows(KERNEL, packed, bbox, (T,))
+    k1 = _k1(KERNEL, max_per_tile, T)
     nty = -(-height // tile_h)
     ntx = -(-width // plain.TILE_W)
     out = torch.empty((nty * tile_h, ntx * plain.TILE_W),
@@ -102,38 +114,62 @@ def rasterize(verts, tris, vals, tri_valid, height: int, width: int,
                                 truncate, tile_h, max_per_tile)[0]
 
 
-def rasterize_tiles_batch(cdata: torch.Tensor,
-                          tile_h: int = 32) -> torch.Tensor:
-    """(B, nty, ntx, K1, 16) candidates -> (B, nty*tile_h, ntx*128), NEG
-    where uncovered; same contract as rasterize.eval_tiles_batch."""
-    if cdata.device.type == "cpu":
-        return plain.eval_tiles_batch(cdata, tile_h)
-    if cdata.device.type != "cuda":
-        raise ValueError(f"{KERNEL_BATCH}: unsupported device "
-                         f"{cdata.device}")
-    if cdata.dtype != torch.float32 or cdata.dim() != 5 \
-            or cdata.shape[-1] != 16 or not cdata.is_contiguous():
-        raise ValueError(f"{KERNEL_BATCH}: cdata must be a contiguous "
-                         f"float32 (B, nty, ntx, K1, 16) tensor, got "
-                         f"{cdata.dtype} {tuple(cdata.shape)}")
+def raster_mesh_batch(packed: torch.Tensor, bbox: torch.Tensor, height: int,
+                      width: int, tile_h: int = 32,
+                      max_per_tile: int = MAX_PER_TILE_BATCH):
+    """One launch for B views of one triangle set: per tile one binning
+    of the union bboxes (rasterize.union_boxes, formed in the kernel's
+    scan), the K1 = min(max_per_tile, T) highest overlapping indices, and
+    each view's max-combine of its rows of them. packed (B, T, 16), bbox
+    (B, T, 4) from mesh_inputs. Returns the (B, nty*tile_h, ntx*128)
+    grids, NEG where uncovered, and the largest per-tile union count (a
+    (1,) int32 tensor); same contract as rasterize.tile_candidates_batch
+    + eval_tiles_batch."""
     _check_tile_h(KERNEL_BATCH, tile_h)
-    B, nty, ntx, k1, _ = cdata.shape
+    dev = packed.device
+    if packed.dim() != 3:
+        raise ValueError(f"{KERNEL_BATCH}: packed must be (B, T, 16), got "
+                         f"{tuple(packed.shape)}")
+    B, T = packed.shape[:2]
+    _check_rows(KERNEL_BATCH, packed, bbox, (B, T))
+    k1 = _k1(KERNEL_BATCH, max_per_tile, T)
+    nty = -(-height // tile_h)
+    ntx = -(-width // plain.TILE_W)
     out = torch.empty((B, nty * tile_h, ntx * plain.TILE_W),
-                      dtype=torch.float32, device=cdata.device)
-    err = _kernels.load().raster_tiles_batch(
-        cdata.data_ptr(), out.data_ptr(), B, nty, ntx, k1, tile_h,
-        torch.cuda.current_stream(cdata.device).cuda_stream)
+                      dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    err = _kernels.load().raster_mesh_batch(
+        packed.data_ptr(), bbox.data_ptr(), B, T,
+        out.data_ptr(), count.data_ptr(), nty, ntx, k1, tile_h,
+        torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check_cuda_error(err, KERNEL_BATCH)
     _kernels.LAUNCHES[KERNEL_BATCH] += 1
-    return out
+    return out, count
+
+
+def rasterize_batch_with_count(verts, tris, vals, tri_valid, height: int,
+                               width: int, truncate: bool = True,
+                               tile_h: int = 32,
+                               max_per_tile: int = MAX_PER_TILE_BATCH):
+    """One triangle set from B views: verts (B, V, 2), vals (B, V),
+    tri_valid (B, T) -> (B, H, W) float32, NaN where uncovered, and the
+    largest per-tile union count (a device integer scalar)."""
+    if verts.device.type == "cpu":
+        cand = plain.tile_candidates_batch(verts, tris, vals, tri_valid,
+                                           height, width, truncate, tile_h,
+                                           max_per_tile)
+        return (plain.finish(plain.eval_tiles_batch(cand.cdata, tile_h),
+                             height, width), cand.max_count)
+    out, count = raster_mesh_batch(*mesh_inputs(verts, tris, vals, tri_valid,
+                                                truncate),
+                                   height, width, tile_h, max_per_tile)
+    return plain.finish(out, height, width), count[0]
 
 
 def rasterize_batch(verts, tris, vals, tri_valid, height: int, width: int,
                     truncate: bool = True, tile_h: int = 32,
                     max_per_tile: int = MAX_PER_TILE_BATCH) -> torch.Tensor:
-    """One triangle set from B views: verts (B, V, 2), vals (B, V),
-    tri_valid (B, T) -> (B, H, W) float32, NaN where uncovered."""
-    cand = plain.tile_candidates_batch(verts, tris, vals, tri_valid, height,
-                                       width, truncate, tile_h, max_per_tile)
-    return plain.finish(rasterize_tiles_batch(cand.cdata.contiguous(),
-                                              tile_h), height, width)
+    """(B, H, W) float32 maps, NaN where uncovered."""
+    return rasterize_batch_with_count(verts, tris, vals, tri_valid, height,
+                                      width, truncate, tile_h,
+                                      max_per_tile)[0]

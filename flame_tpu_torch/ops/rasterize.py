@@ -30,6 +30,7 @@ import torch
 
 TILE_W = 128
 NEG = -3.0e38  # finite -inf stand-in, as in the TPU kernel
+BIG = 3e38  # an empty union bbox's bound
 
 
 def _tri_setup(verts, tris, truncate: bool, corners=None):
@@ -159,6 +160,21 @@ def bin_rows(packed, ok, bbox, height: int, width: int, tile_h: int,
                           max_count=max_count)
 
 
+def union_boxes(ok, bbox):
+    """Each triangle's union bbox (xmin, xmax, ymin, ymax), (T,) each, over
+    the views where it is valid: ok (B, T), bbox four (B, T) tensors. A view
+    where the triangle is invalid does not widen it; valid in none, it is
+    (BIG, -BIG, BIG, -BIG) and meets no tile."""
+    xmin, xmax, ymin, ymax = bbox
+
+    def lo(v):
+        return torch.amin(torch.where(ok, v, torch.full_like(v, BIG)), dim=0)
+
+    def hi(v):
+        return torch.amax(torch.where(ok, v, torch.full_like(v, -BIG)), dim=0)
+    return lo(xmin), hi(xmax), lo(ymin), hi(ymax)
+
+
 def tile_candidates_batch(verts, tris, vals, tri_valid, height: int,
                           width: int, truncate: bool = True,
                           tile_h: int = 32,
@@ -175,18 +191,9 @@ def tile_candidates_batch(verts, tris, vals, tri_valid, height: int,
     nty = -(-height // tile_h)
     ntx = -(-width // TILE_W)
     K1 = min(max_per_tile, tris.shape[0])
-    packed, ok, (xmin, xmax, ymin, ymax) = _packed_rows(
-        verts, tris, vals, tri_valid, truncate)
-    # Views where the triangle is invalid must not widen its union.
-    big = 3e38
-
-    def lo(v):
-        return torch.amin(torch.where(ok, v, torch.full_like(v, big)), dim=0)
-
-    def hi(v):
-        return torch.amax(torch.where(ok, v, torch.full_like(v, -big)), dim=0)
-    kvals, max_count = _bin_tiles((lo(xmin), hi(xmax), lo(ymin), hi(ymax)),
-                                  ok.any(dim=0), height, width, tile_h, K1)
+    packed, ok, bbox = _packed_rows(verts, tris, vals, tri_valid, truncate)
+    kvals, max_count = _bin_tiles(union_boxes(ok, bbox), ok.any(dim=0),
+                                  height, width, tile_h, K1)
     k_valid = kvals >= 0
     cdata = packed[:, torch.clamp(kvals, min=0)] \
         * k_valid[None, ..., None].float()

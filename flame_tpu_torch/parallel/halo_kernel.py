@@ -14,9 +14,13 @@ within `reach` rows, so a partition never needs more.
 
 For tensors on the CPU the iterations run the plain version
 (iterate_plain). For CUDA tensors csrc/halo_smoother.cu runs all
-iterations of all partitions in one launch, one CTA per partition, or
-the call raises; there is no fallback.
+iterations of all partitions in one launch, a thread-block cluster per
+partition (launch_plan), or the call raises; there is no fallback.
 """
+
+import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -29,9 +33,92 @@ from flame_tpu_torch.params import RegularizerParams
 from flame_tpu_torch.parallel.sharding import Mesh
 
 KERNEL = "halo_smoother"
-# Vertices one thread of the kernel holds across an iteration (8 at 1024
-# threads): at most 64 rows of 128 lanes per partition.
-MAX_BLOCK_ROWS = 64
+# The kernel's compile-time shape (csrc/halo_smoother.cu): CTAs of 32
+# warps, a lane per slot (D <= 32), 1, 2, 4 or 8 vertices per warp,
+# clusters of at most 16 CTAs.
+WARPS_PER_CTA = 32
+MAX_DEGREE = 32
+VERTICES_PER_WARP = (1, 2, 4, 8)
+MAX_CLUSTER = 16
+
+
+class LaunchPlan(NamedTuple):
+    cluster: int  # CTAs per cluster, C
+    vertices_per_warp: int
+    splits: int  # clusters per partition
+    clusters: int  # n * splits, all resident at once
+    max_active_clusters: int  # what the card holds of this shape
+
+
+def fitting_plans(V: int, D: int, n: int, n_sms: int,
+                  max_active_clusters: Callable[[int, int], int],
+                  reach: int = 2):
+    """Every shape whose clusters the card holds resident at once, the
+    fewest vertices per warp first and, among those, the fewest clusters.
+    A partition may be split along its rows over several clusters (the
+    kernel then runs n * splits partitions of the same ring; the outputs
+    do not depend on the count). max_active_clusters(cluster,
+    vertices_per_warp) is what the card holds of that shape (its cluster
+    occupancy)."""
+    if not 1 <= D <= MAX_DEGREE:
+        raise ValueError(f"{KERNEL}: degree D={D} outside [1, {MAX_DEGREE}]")
+    R = _rows(V)
+    _check_blocks(R, n, reach)
+    Rb = R // n
+    for vpw in VERTICES_PER_WARP:
+        for splits in (s for s in range(1, Rb + 1)
+                       if Rb % s == 0 and Rb // s >= reach):
+            nv = Rb // splits * LANES
+            clusters = n * splits
+            c = -(-nv // (WARPS_PER_CTA * vpw))
+            if c > MAX_CLUSTER or clusters * c > n_sms:
+                continue
+            held = max_active_clusters(c, vpw)
+            if clusters <= held:
+                yield LaunchPlan(c, vpw, splits, clusters, held)
+
+
+def launch_plan(V: int, D: int, n: int, n_sms: int,
+                max_active_clusters: Callable[[int, int], int],
+                reach: int = 2) -> LaunchPlan:
+    """The first of fitting_plans: the fewest vertices per warp, then the
+    fewest clusters. An iteration's time follows the vertices per warp
+    (each adds a slot update and a slot-order sum to a warp's chain), far
+    more than the clusters' flag handshakes. Raises ValueError, naming
+    the limit, for a V, D or n the kernel cannot hold."""
+    for plan in fitting_plans(V, D, n, n_sms, max_active_clusters, reach):
+        return plan
+    Rb = _rows(V) // n
+    most = max(min(max_active_clusters(c, vpw), n_sms // c) * c
+               * WARPS_PER_CTA * vpw
+               for c in range(1, MAX_CLUSTER + 1) for vpw in VERTICES_PER_WARP)
+    raise ValueError(
+        f"{KERNEL}: V={V} vertices in {n} partitions of {Rb} rows do not "
+        f"fit the card at once: at most {most} ({n_sms} SMs, clusters of "
+        f"at most {MAX_CLUSTER} CTAs of {WARPS_PER_CTA} warps, at most "
+        f"{VERTICES_PER_WARP[-1]} vertices per warp, every cluster "
+        f"resident)")
+
+
+def card_occupancy(device_index: int, reach: int):
+    """The card's SM count and its cluster occupancy for the kernel's
+    shapes, as launch_plan takes them."""
+    lib = _kernels.load()
+
+    def max_active_clusters(cluster, vpw):
+        with torch.cuda.device(device_index):
+            k = ctypes.c_int()
+            _kernels.check_cuda_error(lib.halo_smoother_occupancy(
+                cluster, vpw, reach, ctypes.byref(k)), KERNEL)
+        return k.value
+    props = torch.cuda.get_device_properties(device_index)
+    return props.multi_processor_count, max_active_clusters
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index: int, V: int, D: int, n: int,
+          reach: int) -> LaunchPlan:
+    return launch_plan(V, D, n, *card_occupancy(device_index, reach), reach)
 
 
 def traffic_model(V: int, n_dev: int, n_iters: int, reach: int,
@@ -134,7 +221,9 @@ def _check(name, t, shape, dtype, device):
 def iterate(p: RegularizerParams, n_iters: int, degree: int, reach: int,
             n: int, vtx, slots):
     """n_iters iterations over n partitions; same contract as
-    iterate_plain. On CUDA tensors: one launch of the halo kernel."""
+    iterate_plain. On CUDA tensors: one launch of the halo kernel, a
+    cluster per partition (_plan), raising where the card cannot hold
+    every cluster at once."""
     dev = vtx[0].device
     if dev.type == "cpu":
         return iterate_plain(p, n_iters, degree, reach, n, vtx, slots)
@@ -142,11 +231,6 @@ def iterate(p: RegularizerParams, n_iters: int, degree: int, reach: int,
         raise ValueError(f"{KERNEL}: unsupported device {dev}")
     R = vtx[0].shape[0]
     D = degree
-    _check_blocks(R, n, reach)
-    if R // n > MAX_BLOCK_ROWS:
-        raise ValueError(f"{KERNEL}: {R // n} rows per partition exceed "
-                         f"the kernel's {MAX_BLOCK_ROWS}; use more "
-                         f"partitions")
     f32, i32 = torch.float32, torch.int32
     names = ("x", "w1", "w2", "x_bar", "w1_bar", "w2_bar", "data_term",
              "data_weight", "vtx_mask")
@@ -156,16 +240,19 @@ def iterate(p: RegularizerParams, n_iters: int, degree: int, reach: int,
             ("nbr", "rowflag", "sdx", "sdy", "sal", "sbe", "sgn", "srcf",
              "q1", "q2", "q3"), slots)):
         _check(name, t, (R * D, LANES), i32 if k < 2 else f32, dev)
+    plan = _plan(dev.index, R * LANES, D, n, reach)
+    parts = plan.clusters  # the kernel's ring: n * splits partitions
     # The kernel updates its state in place: work on copies.
     state = [t.clone() for t in vtx[:6]] + [t.clone() for t in slots[8:]]
-    rx = torch.empty((n, 2, 2, 3, reach, LANES), dtype=f32, device=dev)
-    flags = torch.empty((n, 2), dtype=i32, device=dev)
+    rx = torch.empty((parts, 2, 2, 3, reach, LANES), dtype=f32, device=dev)
+    flags = torch.empty((parts, 2), dtype=i32, device=dev)
     err = _kernels.load().halo_smoother(
         *(t.data_ptr() for t in state[:6]),
         *(t.data_ptr() for t in vtx[6:]),
         *(t.data_ptr() for t in slots[:8]),
         *(t.data_ptr() for t in state[6:]),
-        rx.data_ptr(), flags.data_ptr(), n, R // n, D, reach, n_iters,
+        rx.data_ptr(), flags.data_ptr(), parts, R // parts, D, reach,
+        n_iters, plan.cluster, plan.vertices_per_warp,
         p.step_x, p.step_q, p.theta, p.x_min, p.x_max, p.data_factor,
         torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check_cuda_error(err, KERNEL)

@@ -3,9 +3,10 @@
 Counterpart of flame_tpu/parallel/orchestrator.py. Every update() runs
 the Flame pipeline; the smoother of each post-Delaunay step is
 partitioned over the mesh: smoother="pallas_halo" runs the halo kernel
-K3 (parallel/halo_kernel.py) with one CTA per partition, "halo" the plain
-partitioned smoother (parallel/halo.py). "auto" and "pallas" become
-"vertex", as in the JAX package ("pallas" with a warning).
+K3 (parallel/halo_kernel.py) with a thread-block cluster per partition,
+"halo" the plain partitioned smoother (parallel/halo.py). "auto" and
+"pallas" become "vertex", as in the JAX package ("pallas" with a
+warning).
 
 The port's mesh is n partitions of one card (parallel/sharding.py), so
 the pipeline state stays on that card. The JAX package's NamedSharding

@@ -1,4 +1,4 @@
-"""What the redesigned K1 and K2 decide on the host, on the CPU.
+"""What the redesigned K1, K2 and K3 decide on the host, on the CPU.
 
   * K1 (csrc/nltgv2_smoother.cu) runs every iteration in one cooperative
     launch, so its CTAs must all be resident: smoother_kernel.launch_plan
@@ -12,6 +12,12 @@
     (exact: the binning compares truncated integer coordinates), and
     raster_kernel.rasterize_with_count to the JAX Pallas kernel in
     interpret mode (identical NaN masks, values to atol 1e-5).
+  * K3 (csrc/halo_smoother.cu) runs a thread-block cluster per partition,
+    every cluster spinning on its ring neighbours, so all must be
+    resident: halo_kernel.launch_plan picks the CTAs per cluster, the
+    fewest vertices per warp and then the fewest clusters per partition
+    from the SM count and the cluster occupancy, and names the limit
+    otherwise.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 from flame_tpu.ops import pallas_raster as jpr  # noqa: E402
 from flame_tpu_torch.ops import raster_kernel, rasterize  # noqa: E402
 from flame_tpu_torch.optimize import smoother_kernel  # noqa: E402
+from flame_tpu_torch.parallel import halo_kernel  # noqa: E402
 
 H100_SMS = 132
 
@@ -72,6 +79,82 @@ def test_launch_plan_names_the_limit(V, D, limit):
 def test_launch_plan_rejects_the_degree(D):
     with pytest.raises(ValueError, match="degree"):
         smoother_kernel.launch_plan(1024, D, H100_SMS, h100_blocks_per_sm)
+
+
+def h100_max_clusters(cluster, vpw, reach=3):
+    """Clusters of 1024-thread CTAs (one per SM) that a 132-SM H100 holds
+    at once: 7 of 16 and 15 of 8 CTAs, as an H100 80GB HBM3 reports them
+    (cudaOccupancyMaxActiveClusters), else one CTA per SM; none where a
+    CTA's shared memory (the bars, halos, spilled slots and sums of
+    csrc/halo_smoother.cu) passes 227 KB."""
+    smem = (2 * 32 * vpw + 2 * reach * 128) * 16 \
+        + (max(vpw - 2, 0) * 8 * 1024 + 32 * 96) * 4
+    if smem > 227 * 1024:
+        return 0
+    return {16: 7, 8: 15}.get(cluster, H100_SMS // cluster)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("V", [4096, 8192])
+def test_halo_launch_plan_fits_the_card(V, n):
+    plan = halo_kernel.launch_plan(V, 20, n, H100_SMS, h100_max_clusters,
+                                   reach=3)
+    nv = V // n // plan.splits  # vertices of one cluster
+    C, vpw = plan.cluster, plan.vertices_per_warp
+    # A cluster of more than one CTA, each holding vertices, covers its
+    # rows; every cluster is resident.
+    assert 2 <= C <= halo_kernel.MAX_CLUSTER
+    assert C * 32 * vpw >= nv > (C - 1) * 32 * vpw
+    assert plan.clusters == n * plan.splits
+    assert plan.clusters <= plan.max_active_clusters \
+        == h100_max_clusters(C, vpw)
+    assert plan.clusters * C <= H100_SMS
+    # No fewer vertices per warp would have fitted at any split, nor
+    # fewer splits at these vertices per warp.
+    Rb = V // 128 // n
+    for v in halo_kernel.VERTICES_PER_WARP:
+        for s in range(1, Rb + 1):
+            if Rb % s or Rb // s < 3 or (v, s) >= (vpw, plan.splits):
+                continue
+            c = -(-(V // n // s) // (32 * v))
+            assert c > 16 or n * s * c > H100_SMS \
+                or n * s > h100_max_clusters(c, v)
+
+
+@pytest.mark.parametrize("V, n, want", [
+    (4096, 1, (16, 2, 4)), (4096, 2, (16, 2, 2)), (4096, 4, (16, 2, 1)),
+    (4096, 8, (8, 2, 1)), (8192, 1, (16, 4, 4)), (8192, 8, (8, 4, 1))])
+def test_halo_launch_plan_splits_for_fewer_vertices_per_warp(V, n, want):
+    """A partition goes over several clusters where that lowers the
+    vertices per warp: 4096 vertices at one partition as four clusters
+    of 16 CTAs at two vertices per warp, not one at eight."""
+    plan = halo_kernel.launch_plan(V, 20, n, H100_SMS, h100_max_clusters,
+                                   reach=3)
+    assert (plan.cluster, plan.vertices_per_warp, plan.splits) == want
+
+
+@pytest.mark.parametrize("held16, want", [(8, (16, 1)), (7, (8, 2))])
+def test_halo_launch_plan_uses_the_occupancy_it_is_given(held16, want):
+    """Eight partitions of 512 vertices: 16-CTA clusters at one vertex per
+    warp when the card holds eight of them, else 8-CTA clusters at two."""
+    def held(cluster, vpw):
+        return held16 if cluster == 16 else h100_max_clusters(cluster, vpw)
+    plan = halo_kernel.launch_plan(4096, 20, 8, H100_SMS, held, reach=3)
+    assert (plan.cluster, plan.vertices_per_warp) == want
+    assert plan.max_active_clusters == held(*want)
+
+
+@pytest.mark.parametrize("V, n", [(65536, 1), (65536, 4)])
+def test_halo_launch_plan_names_the_limit(V, n):
+    # 132 SMs x 32 warps x 8 vertices, in clusters of 4 or fewer CTAs.
+    with pytest.raises(ValueError, match="at most 33792"):
+        halo_kernel.launch_plan(V, 20, n, H100_SMS, h100_max_clusters)
+
+
+@pytest.mark.parametrize("D", [0, 33])
+def test_halo_launch_plan_rejects_the_degree(D):
+    with pytest.raises(ValueError, match="degree"):
+        halo_kernel.launch_plan(4096, D, 4, H100_SMS, h100_max_clusters)
 
 
 def _overflow_mesh(seed, H=96, W=256):

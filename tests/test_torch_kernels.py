@@ -6,12 +6,12 @@ jax, run them past tests/conftest.py (which imports jax) with
 Tolerances: the smoother kernel K1 (one launch per call) sums a
 vertex's slots in another order than torch (rtol 2e-4 / atol 5e-5 after
 40 iterations, the tests/test_pallas_smoother.py bound), and both copies
-of every edge's duals stay bit-equal. So for the halo kernel K3, whose
-outputs are also bit-equal for every number of partitions. The raster
-kernels' inside test (one view with its binning on the device, and B
-views after one shared binning) is exact on truncated vertices
-(identical NaN masks), their values agree to 1e-5, and the one-view
-kernel's largest per-tile count equals the plain binning's.
+of every edge's duals stay bit-equal. So for the halo kernel K3 (a
+thread-block cluster per partition), whose outputs are also bit-equal for
+every number of partitions. The raster kernels' inside test (one view,
+and B views with one union binning, both binning on the device) is exact
+on truncated vertices (identical NaN masks), their values agree to 1e-5,
+and their largest per-tile counts equal the plain binnings'.
 """
 
 import numpy as np
@@ -143,8 +143,15 @@ def test_smoother_full_smooth_matches_plain(graph):
                                    rtol=2e-4, atol=5e-5, msg=name)
 
 
+@pytest.fixture(scope="module")
+def big_graph(cuda):
+    """4096 vertices over 640x480: 32 rows, enough for 8 partitions."""
+    return _graph(cuda, V=4096, E=3 * 4096, W=640, H=480, seed=7)
+
+
 def _banded(g):
     """The banded layout of the graph (RCM order of its edges, reach 2)."""
+    V, E, D = g.x.shape[0], g.q1.shape[0], g.inc_edge.shape[1]
     edges = g.edges[g.edge_mask].cpu().numpy()
     n_e = edges.shape[0]
     perm = smoother_kernel.rcm_order(edges, n_e, V, np.ones(V, bool))
@@ -160,11 +167,21 @@ def _banded(g):
     return lay, dst
 
 
-@pytest.mark.parametrize("n", [1, 2, 4])
-def test_halo_kernel_matches_plain(graph, n):
-    g, _ = graph
+def _plan(g, n):
+    return halo_kernel._plan(g.x.device.index or 0, g.x.shape[0], D, n, 2)
+
+
+@pytest.mark.parametrize("which, n", [("graph", 1), ("graph", 2),
+                                      ("graph", 4), ("big_graph", 1),
+                                      ("big_graph", 8)])
+def test_halo_kernel_matches_plain(request, which, n):
+    """One launch, a cluster of more than one CTA per partition (1024
+    vertices in one partition force it, as do 4096 in one or 512 in each
+    of 8), the plain version's outputs and bit-equal dual copies."""
+    g, _ = request.getfixturevalue(which)
     lay, dst = _banded(g)
     p = RegularizerParams()
+    assert _plan(g, n).cluster > 1
     before = _kernels.LAUNCHES["halo_smoother"]
     out_k = halo_kernel.iterate(p, 40, D, 2, n, lay.vtx, lay.slots)
     assert _kernels.LAUNCHES["halo_smoother"] == before + 1
@@ -178,15 +195,29 @@ def test_halo_kernel_matches_plain(graph, n):
         assert torch.equal(qf[lay.src_slot[lay.alive]], qf[dst[lay.alive]])
 
 
-def test_halo_kernel_independent_of_partitions(graph):
-    g, _ = graph
+@pytest.mark.parametrize("which, parts", [("graph", (2, 4)),
+                                          ("big_graph", (2, 4, 8))])
+def test_halo_kernel_independent_of_partitions(request, which, parts):
+    g, _ = request.getfixturevalue(which)
     lay, _ = _banded(g)
     p = RegularizerParams()
     base = halo_kernel.iterate(p, 40, D, 2, 1, lay.vtx, lay.slots)
-    for n in (2, 4):
+    for n in parts:
         out = halo_kernel.iterate(p, 40, D, 2, n, lay.vtx, lay.slots)
         for a, b in zip(out, base):
             assert torch.equal(a, b)
+
+
+def test_halo_kernel_rejects_what_the_card_cannot_hold(cuda):
+    """65,536 vertices in one partition: no cluster shape holds them all
+    resident at once, so the wrapper raises before launching."""
+    R = 512
+    z = torch.zeros((R, 128), device=cuda)
+    zs = torch.zeros((R * D, 128), device=cuda)
+    zi = torch.zeros((R * D, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="do not fit the card"):
+        halo_kernel.iterate(RegularizerParams(), 40, D, 2, 1, (z,) * 9,
+                            (zi, zi) + (zs,) * 9)
 
 
 def _check_raster(pos, tris, vals, valid, max_per_tile):
@@ -234,33 +265,64 @@ def test_raster_kernel_overflow_keeps_the_plain_candidates(cuda):
     assert count > 160
 
 
-def test_raster_batch_kernel_matches_plain(graph):
-    """K2b: B=4 views of one mesh (shifted and scaled per view, per-view
-    values, view-specific invalid triangles) with one shared binning."""
-    g, tris = graph
-    dev = tris.device
-    B = 4
-    verts = torch.stack([g.pos * (1.0 + 0.01 * b)
-                         + torch.tensor([3.0 * b, -2.0 * b], device=dev)
-                         for b in range(B)])
-    vals = torch.rand(B, V, device=dev) + 0.5
-    valid = torch.ones(B, tris.shape[0], dtype=torch.bool, device=dev)
-    valid[1, :50] = False
+def _views(pos, B):
+    """B views of one mesh, shifted and scaled per view."""
+    return torch.stack([pos * (1.0 + 0.01 * b) + torch.tensor(
+        [3.0 * b, -2.0 * b], device=pos.device) for b in range(B)])
+
+
+def _check_raster_batch(verts, tris, vals, valid, max_per_tile):
+    """K2b through rasterize_batch_with_count against the plain union
+    binning + eval_tiles_batch: one launch, equal NaN masks, values to
+    1e-5, equal largest union count."""
     cand = rasterize.tile_candidates_batch(verts, tris, vals, valid, H, W,
-                                           max_per_tile=512)
-    assert int(cand.max_count) <= 512
-    before = _kernels.LAUNCHES["raster_tiles_batch"]
-    out_k = rasterize.finish(
-        raster_kernel.rasterize_tiles_batch(cand.cdata.contiguous()), H, W)
-    assert _kernels.LAUNCHES["raster_tiles_batch"] == before + 1
+                                           max_per_tile=max_per_tile)
+    before = _kernels.LAUNCHES["raster_mesh_batch"]
+    out_k, count = raster_kernel.rasterize_batch_with_count(
+        verts, tris, vals, valid, H, W, max_per_tile=max_per_tile)
+    assert _kernels.LAUNCHES["raster_mesh_batch"] == before + 1
     out_p = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata), H, W)
     assert torch.equal(torch.isnan(out_k), torch.isnan(out_p))
     m = ~torch.isnan(out_k)
     torch.testing.assert_close(out_k[m], out_p[m], rtol=0, atol=1e-5)
+    assert int(count) == int(cand.max_count)
+    return out_k, int(count)
+
+
+@pytest.mark.parametrize("B", [4, 8, 12])
+def test_raster_batch_kernel_matches_plain(graph, B):
+    """K2b (raster_mesh_batch): B views of one mesh (shifted and scaled
+    per view, per-view values, view-specific invalid triangles) with one
+    union binning per tile; clusters of 4, 8 and 6 views."""
+    g, tris = graph
+    dev = tris.device
+    verts = _views(g.pos, B)
+    vals = torch.rand(B, V, device=dev) + 0.5
+    valid = torch.ones(B, tris.shape[0], dtype=torch.bool, device=dev)
+    valid[1, :50] = False
+    valid[B - 1, 100:180] = False
+    out_k, count = _check_raster_batch(verts, tris, vals, valid, 512)
+    assert count <= 512
     for b in range(B):
         ref = rasterize.rasterize_bruteforce(verts[b], tris, vals[b],
                                              valid[b], H, W)
         assert torch.equal(torch.isnan(ref), torch.isnan(out_k[b]))
+
+
+def test_raster_batch_kernel_overflow_keeps_the_plain_candidates(cuda):
+    """A tile whose union count passes 192 keeps the 192 of the highest
+    index, as the plain union binning (and the TPU kernel's top_k) does."""
+    rng = np.random.default_rng(10)
+    pts = np.concatenate([rng.uniform([2, 2], [W - 2, H - 2], (600, 2)),
+                          rng.uniform([132, 36], [250, 60], (400, 2))])
+    tri = delaunay.triangulate(pts.astype(np.float32))
+    pos = torch.as_tensor(pts, dtype=torch.float32, device=cuda)
+    tris = torch.as_tensor(tri.triangles.astype(np.int64), device=cuda)
+    B = 8
+    vals = torch.rand(B, pts.shape[0], device=cuda) + 0.5
+    valid = torch.rand(B, tris.shape[0], device=cuda) > 0.02
+    _, count = _check_raster_batch(_views(pos, B), tris, vals, valid, 192)
+    assert count > 192
 
 
 def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):
@@ -277,12 +339,13 @@ def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):
     halo_kernel.iterate(RegularizerParams(), 3, D, 2, 2, lay.vtx, lay.slots)
     vals = torch.ones(V, device=tris.device)
     valid = torch.ones(tris.shape[0], dtype=torch.bool, device=tris.device)
+    # Both rasterizers bin on the device: no torch binning either.
+    monkeypatch.setattr(rasterize, "_bin_tiles", forbidden)
+    monkeypatch.setattr(rasterize, "tile_candidates", forbidden)
+    monkeypatch.setattr(rasterize, "tile_candidates_batch", forbidden)
     raster_kernel.rasterize_batch(g.pos[None].repeat(2, 1, 1), tris,
                                   vals[None].repeat(2, 1),
                                   valid[None].repeat(2, 1), H, W)
-    # The single view bins on the device: no torch binning either.
-    monkeypatch.setattr(rasterize, "_bin_tiles", forbidden)
-    monkeypatch.setattr(rasterize, "tile_candidates", forbidden)
     raster_kernel.rasterize(g.pos, tris, vals, valid, H, W)
     torch.cuda.synchronize()
 
@@ -297,6 +360,7 @@ def test_wrappers_reject_bad_inputs(graph):
         raster_kernel.raster_mesh(torch.zeros((8, 15), device=g.x.device),
                                   torch.zeros((8, 4), device=g.x.device),
                                   H, W)
-    with pytest.raises(ValueError):  # a single view's 4-d candidates
-        raster_kernel.rasterize_tiles_batch(
-            torch.zeros((2, 2, 8, 16), device=g.x.device))
+    with pytest.raises(ValueError):  # a single view's rows
+        raster_kernel.raster_mesh_batch(
+            torch.zeros((8, 16), device=g.x.device),
+            torch.zeros((8, 4), device=g.x.device), H, W)
