@@ -31,6 +31,9 @@ Phases (any failure raises and the script exits non-zero):
      cluster, vertices per warp, clusters the card holds): against its
      plain version, bit-equal across the partition counts (the strips
      arrive right) and with bit-equal dual copies;
+  5c. the BA window solve (ba.window._solve_packed at L=1024, M=4096)
+     captured as one CUDA graph against its eager run, on well-posed
+     windows of 3 and 8 poses (rtol 1e-4), with both times;
   6. the synchronous path: flame_tpu_torch.Flame at 640x480 with 4096
      features on a synthetic textured plane at 5 m, 30 frames, every
      second one a poseframe; K1 and K2 must run on every frame that
@@ -48,7 +51,19 @@ Phases (any failure raises and the script exits non-zero):
      smoother="pallas_halo" on make_mesh(4) (4 partitions of the card),
      on phase 6's frames (its dense map within a median 1e-4 of phase
      6's) and on phase 7's configuration with resident frames; K3 and K2
-     once and K1 never per post-Delaunay step, with the bounds of phase 6.
+     once and K1 never per post-Delaunay step, with the bounds of phase 6;
+  9. the dataset path: mini-TUM (flame_tpu_torch.io.synthetic) generated
+     into a temporary directory with 15 mm / 0.3 deg pose noise and run
+     through io.datasets.load_tum + run_sequence (poseframe every 2
+     frames), on the true poses and on the noisy poses without and with
+     bundle adjustment: at 256x192 in DATASETS.md's configuration
+     (tests/test_dataset_accuracy.py), and at 640x480 with run_dataset's
+     Params (async topology; BA on the true poses too). Nothing waits for
+     the card inside a run. Gates: the true-pose final map covers > 0.35
+     with median relative error < 0.04 (at 640x480 coverage only: the JAX
+     package misses 0.04 there too, and the error is printed beside its
+     value), BA cuts the ATE below 0.8x and applied a solve, and K1 and K2
+     launch once per post-Delaunay step.
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON summary (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -886,6 +901,222 @@ def throughput_path(smi, mode, n_frames=96, sharded=False):
     return launches
 
 
+# Phase 9: the dataset path (mini-TUM -> io.datasets.load_tum ->
+# run_sequence -> Flame), with and without bundle adjustment.
+DS_NOISE = dict(pose_noise_t=0.015, pose_noise_deg=0.3, noise_seed=1)
+VGA_FX = 517.3  # TUM fr1's focal length (px), at 640x480
+# The JAX package's final-map median relative error on the 640x480
+# true-pose run (run_dataset's Params and BA, async topology, the input of
+# dataset_path's 640x480 cell), from tests/torch_dataset_witness.py on the
+# CPU. DATASETS.md's 0.04 holds for neither package there: the maps of the
+# frames between poseframes read up to 12% under async topology in both
+# (ROADMAP section 3), and the final frame is one of those. So that cell
+# gates coverage only and prints the error beside this value.
+VGA_JAX_MAP_ERR = 0.22313
+
+
+def mini_tum_params(do_ba):
+    """tests/test_dataset_accuracy.py's configuration (:21-30), the one
+    DATASETS.md measures."""
+    from flame_tpu_torch import (BAParams, DetectionParams, Params,
+                                 SolverParams)
+    return Params(
+        feature_capacity=1024, edge_capacity=4096, triangle_capacity=2048,
+        poseframe_capacity=8, min_height=-100.0, max_height=100.0,
+        idepth_init=0.2, idepth_var_init=0.25,
+        detection=DetectionParams(win_size=12),
+        solver=SolverParams(n_iters_per_frame=40, max_vertex_degree=16),
+        do_ba=do_ba, ba=BAParams(window_size=6), debug_quiet=True)
+
+
+def vga_params(do_ba):
+    """run_dataset's Params at TUM's focal length (the re-match radius
+    scaled to 8 px)."""
+    from flame_tpu_torch import run_dataset
+    return run_dataset.make_params(do_ba, VGA_FX)
+
+
+def dataset_run(root, n_frames, params, K, poses, poseframe_every):
+    """load_tum + run_sequence on the card, substituting poses (the noisy
+    track) when given. Records each update's host wall time and each
+    staged BA solve's time between CUDA events (read after the run) and
+    host staging time; nothing waits for the card inside the run, so the
+    async topology and BA keep the schedule they have without the
+    script."""
+    import flame_tpu_torch
+    from flame_tpu_torch.geometry import camera
+    from flame_tpu_torch.io import datasets
+    frames = datasets.load_tum(root, max_frames=n_frames)
+    if len(frames) != n_frames:
+        raise AssertionError(f"load_tum: {len(frames)} of {n_frames} frames")
+    if poses is not None:
+        for fr, (q, t) in zip(frames, poses):
+            fr.q = np.asarray(q, np.float32)
+            fr.t = np.asarray(t, np.float32)
+    H_, W_ = frames[0].load_image().shape
+    Kt = torch.as_tensor(K, dtype=torch.float32)
+    fl = flame_tpu_torch.Flame(W_, H_, Kt, camera.inv_k(Kt), params)
+    frame_ms, staged = [], []
+    update = fl.update
+
+    def timed_update(*args):
+        t0 = time.perf_counter()
+        ok = update(*args)
+        frame_ms.append(1000 * (time.perf_counter() - t0))
+        return ok
+    fl.update = timed_update
+    if fl._ba is not None:
+        stage = fl._ba._stage_solve
+
+        def timed_stage(flame):
+            n0 = flame.stats.stats("ba_single_solves")
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            stage(flame)
+            ev[1].record()
+            if flame.stats.stats("ba_single_solves") > n0:
+                staged.append((ev, 1000 * (time.perf_counter() - t0)))
+        fl._ba._stage_solve = timed_stage
+    out = datasets.run_sequence(fl, frames, poseframe_every=poseframe_every)
+    torch.cuda.synchronize()
+    solve_ms = [(ev[0].elapsed_time(ev[1]), host) for ev, host in staged]
+    del fl.update  # the wrappers refer to fl: no cycle is left behind
+    if fl._ba is not None:
+        del fl._ba._stage_solve
+    return fl, out, frame_ms, solve_ms
+
+
+def pf_ate(fl, gt):
+    """ATE (m, Umeyama-aligned) of the poseframes' final positions."""
+    from flame_tpu_torch.utils import evaluation
+    ids = sorted(fl._pf_slot_by_id)
+    t = fl._stack.t[[fl._pf_slot_by_id[i] for i in ids]].cpu().numpy()
+    return evaluation.ate_rmse(t, np.asarray([gt[i][1] for i in ids]))
+
+
+def check_ba_graph(smi):
+    """The BA window solve (ba.window._solve_packed at BAParams' default
+    L=1024, M=4096) captured as a CUDA graph (_GraphedSolve) against its
+    eager run on well-posed windows of 3 and 8 poses: the flat result
+    within 1e-4 relative (the sums use atomics; two eager runs are
+    compared the same way), times of both."""
+    from flame_tpu_torch import BAParams
+    from flame_tpu_torch.ba import window
+    dev = torch.device("cuda")
+    p = BAParams()
+    L, M = p.max_landmarks, p.max_obs
+    Kn = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]])
+    K = torch.tensor(Kn, dtype=torch.float32, device=dev)
+    Kinv = torch.linalg.inv(K)
+    img = torch.as_tensor(np.random.default_rng(SEED).uniform(
+        0, 255, (8, H + 10, W + 10)), dtype=torch.float32, device=dev)
+    for P in (3, 8):
+        buf = torch.as_tensor(window.well_posed_window(P, L, M, Kn, P,
+                                                       (40, 440)), device=dev)
+
+        def solve(b):
+            return window._solve_packed(p, K, Kinv, b, img, 5, 2, P, L, M)
+        ref = solve(buf)
+        t0 = time.perf_counter()
+        graphed = window._GraphedSolve(solve, buf)
+        torch.cuda.synchronize()
+        capture_ms = 1000 * (time.perf_counter() - t0)
+        out = graphed(buf).clone()
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5,
+                                   msg=f"graphed BA solve, {P} poses")
+        err = (out - ref).abs().max().item()
+        eager_ms = _cuda_ms(lambda: solve(buf), 3)
+        replay_ms = _cuda_ms(lambda: graphed(buf), 10)
+        card_ms = _device_ms(lambda: graphed(buf), 10)
+        print(f"BA window solve, {P} poses, L={L}, M={M}: max|graph-eager| "
+              f"{err:.3g} (rtol 1e-4); eager {eager_ms:.3f} ms, graph replay "
+              f"{replay_ms:.3f} ms back to back, {card_ms:.3f} ms on the "
+              f"card; warm-up and capture {capture_ms:.1f} ms; on {smi}")
+
+
+def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
+                 specs, gate_err=True):
+    """mini-TUM generated with 15 mm / 0.3 deg pose noise, run once per
+    spec (name, noisy, params) on the true or the noisy poses; the specs
+    are "true", "noisy" and "noisy_ba", the last with BA. Gates: the final
+    map of the "true" run covers > 0.35 of the pixels with median relative
+    error < 0.04 (tests/test_dataset_accuracy.py; the error only with
+    gate_err, else printed beside the JAX package's VGA_JAX_MAP_ERR);
+    "noisy_ba" cuts the ATE of "noisy" below 0.8x and applied at least one
+    solve; K1 and K2 launch once per post-Delaunay step in every run."""
+    import tempfile
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.io import synthetic
+    from flame_tpu_torch.utils import evaluation
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        meta = synthetic.generate_mini_tum(root, n_frames=n_frames,
+                                           width=width, height=height, fx=fx,
+                                           **DS_NOISE)
+        gen_s = time.perf_counter() - t0
+        K = meta["K"]
+        _, gt_idm = synthetic.render_frame(
+            K, *synthetic.trajectory(n_frames - 1), width, height)
+        runs, launches = {}, {k: 0 for k in _kernels.LAUNCHES}
+        for name, noisy, params in specs:
+            _kernels.reset_launches()
+            fl, out, frame_ms, solve_ms = dataset_run(
+                root, n_frames, params, K, meta["noisy"] if noisy else None,
+                poseframe_every)
+            got = dict(_kernels.LAUNCHES)
+            n_post = len(fl.stats.device_times_ms().get("sync_graph", []))
+            if n_post < 1 or got["nltgv2_smoother"] != n_post \
+                    or got["raster_mesh"] != n_post:
+                raise AssertionError(f"{label} {name}: launches {got} for "
+                                     f"{n_post} post-Delaunay steps")
+            for k in launches:
+                launches[k] += got[k]
+            runs[name] = dict(
+                fl=fl, out=out, frame_ms=frame_ms, solve_ms=solve_ms,
+                n_post=n_post, ate=pf_ate(fl, meta["gt"]),
+                err=evaluation.depth_error_stats(fl.get_inverse_depth_map(),
+                                                 gt_idm))
+    print(f"{label}: generated in {gen_s:.2f} s")
+    skip = 4  # the first updates include one-time allocations
+    for name, r in runs.items():
+        st = r["fl"].stats
+        print(f"{label} {name}: coverage {r['err']['coverage']:.4f}, median "
+              f"relative error {r['err']['median_rel']:.5f}, ATE "
+              f"{1000 * r['ate']:.3f} mm; BA solves staged "
+              f"{int(st.stats('ba_single_solves'))}, applied "
+              f"{int(st.stats('ba_solves_applied'))}, write-back skips "
+              f"{int(st.stats('ba_writeback_skips'))}, observations dropped "
+              f"for {int(st.stats('ba_obs_dropped_pfs'))} poseframes")
+        print(f"{label} {name}: median update "
+              f"{np.median(r['frame_ms'][skip:]):.3f} ms (host wall, updates "
+              f"{skip + 1}-{len(r['frame_ms'])}), {r['n_post']} post-Delaunay "
+              f"steps, run_sequence {r['out']['fps']:.2f} fps, on {smi}")
+        print(f"{label} {name}: median ms per stage (CUDA events) on {smi}: "
+              + stage_medians(r["fl"], ("update_idepths", "sync_graph",
+                                        "smoother", "raster", "ba"), skip))
+        if r["solve_ms"]:
+            dev_ms, host_ms = np.median(np.asarray(r["solve_ms"]), axis=0)
+            print(f"{label} {name}: median staged BA solve {dev_ms:.3f} ms "
+                  f"between CUDA events, {host_ms:.3f} ms host staging "
+                  f"({len(r['solve_ms'])} solves) on {smi}")
+    err, nz, ba = runs["true"]["err"], runs["noisy"], runs["noisy_ba"]
+    ratio = ba["ate"] / nz["ate"]
+    print(f"{label}: gates: true final map coverage {err['coverage']:.4f} "
+          f"(> 0.35), median relative error {err['median_rel']:.5f} "
+          + ("(< 0.04)" if gate_err else
+             f"(not gated: the JAX package's on this input "
+             f"{VGA_JAX_MAP_ERR}, tests/torch_dataset_witness.py)")
+          + f"; ATE noisy_ba / noisy {ratio:.4f} (< 0.8)")
+    if not (err["coverage"] > 0.35
+            and (err["median_rel"] < 0.04 or not gate_err)
+            and nz["ate"] > 0.005
+            and ratio < 0.8
+            and ba["fl"].stats.stats("ba_solves_applied") >= 1):
+        raise AssertionError(f"{label}: dataset gates failed")
+    return launches
+
+
 def main():
     smi = environment()
     build()
@@ -898,11 +1129,21 @@ def main():
     k2 = check_raster(g, tris)
     k2b = check_raster_batch(g, tris)
     k3 = check_halo(g, k1)
+    check_ba_graph(smi)
     sync_launches, vertex_map = main_path(smi)
     sharded_launches, _ = main_path(smi, sharded=True, ref_map=vertex_map)
     runs = [sync_launches, sharded_launches] + [
         throughput_path(smi, mode) for mode in ("resident", "host")] + [
-        throughput_path(smi, "resident", sharded=True)]
+        throughput_path(smi, "resident", sharded=True)] + [
+        dataset_path(smi, "dataset path mini-TUM 256x192", 24, 256, 192,
+                     210.0, 2, [("true", False, mini_tum_params(False)),
+                                ("noisy", True, mini_tum_params(False)),
+                                ("noisy_ba", True, mini_tum_params(True))]),
+        dataset_path(smi, "dataset path mini-TUM 640x480", 48, 640, 480,
+                     VGA_FX, 2, [("true", False, vga_params(True)),
+                                 ("noisy", True, vga_params(False)),
+                                 ("noisy_ba", True, vga_params(True))],
+                     gate_err=False)]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",

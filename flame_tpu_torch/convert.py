@@ -4,7 +4,7 @@ Takes plain Python/numpy data only (dataclasses.asdict of the JAX Params,
 dicts of numpy arrays of its state containers), so this module imports
 no JAX. The tests use it to feed both packages the same solver state:
 the parameters, the poseframe stack, the features, the graph (its scale
-is a plain float) and the applied topology.
+is a plain float), the applied topology and a BA window problem.
 """
 
 import dataclasses
@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from flame_tpu_torch import params as params_mod
+from flame_tpu_torch.ba.residuals import BAObservations
+from flame_tpu_torch.ba.schur import BAProblem
 from flame_tpu_torch.core.frame import FrameStack
 from flame_tpu_torch.core.pipeline import CurrFeatures, FeatureState
 from flame_tpu_torch.optimize.nltgv2 import GraphState
@@ -122,3 +124,27 @@ def graph_state_from_numpy(d: Mapping, device) -> GraphState:
                  torch.bool if f.name in bools else torch.float32)
         kw[f.name] = _t(a, device, dtype)
     return GraphState(**kw)
+
+
+def ba_problem_from_numpy(d: Mapping, device) -> BAProblem:
+    """BAProblem and its BAObservations from numpy arrays: d holds q, t,
+    lm_idepth, lm_valid, optional prior_q/prior_t, and obs, a mapping of
+    anchor_idx, obs_idx, lm_idx, u_ref, u_obs, valid (the fields of the
+    JAX package's BAProblem; its NamedTuples' _asdict() gives them)."""
+    f32 = torch.float32
+    o = d["obs"]
+    if not isinstance(o, Mapping):
+        o = o._asdict()
+    obs = BAObservations(
+        anchor_idx=_t(o["anchor_idx"], device, torch.int64),
+        obs_idx=_t(o["obs_idx"], device, torch.int64),
+        lm_idx=_t(o["lm_idx"], device, torch.int64),
+        u_ref=_t(o["u_ref"], device, f32), u_obs=_t(o["u_obs"], device, f32),
+        valid=_t(o["valid"], device, torch.bool))
+
+    def opt(k):
+        return None if d.get(k) is None else _t(d[k], device, f32)
+    return BAProblem(q=_t(d["q"], device, f32), t=_t(d["t"], device, f32),
+                     lm_idepth=_t(d["lm_idepth"], device, f32),
+                     lm_valid=_t(d["lm_valid"], device, torch.bool), obs=obs,
+                     prior_q=opt("prior_q"), prior_t=opt("prior_t"))

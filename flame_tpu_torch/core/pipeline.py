@@ -4,7 +4,7 @@ Port of the single-device parts of flame_tpu/core/pipeline.py
 (reference flame.cc: updateFeatureIDepths :1280-1534, trackFeature
 :1536-1752, projectFeatures :1754-1860, projectGraph :1862-1938,
 syncGraph :1940-2188, prunePoseFrames :554-706), the batched step of the
-throughput path included; bundle adjustment's packing is not ported.
+throughput path and bundle adjustment's widened transfer included.
 Feature slot i is graph vertex slot i. Functions are plain torch on
 whatever device the state lives on; the JAX package's vmaps are a leading
 feature dimension here.
@@ -369,18 +369,75 @@ def pack_track_outputs(feats: FeatureState, curr: CurrFeatures,
     return torch.stack([fx(curr.xy[:, 0]), fx(curr.xy[:, 1]), flags], dim=1)
 
 
+# Sentinel u_obs.x of a failed match in the BA section of the packed
+# transfer (valid coordinates clip to 65534).
+PACK_BA_FAIL = 0xFFFF
+
+
+def _u16_pairs(a: torch.Tensor) -> torch.Tensor:
+    """Values in [0, 65535], taken in pairs (lo, hi) along the flattened
+    order, as the int32 words whose little-endian u16 halves they are."""
+    a = a.reshape(-1, 2).long()
+    hi = a[:, 1]
+    return (a[:, 0] + torch.where(hi >= 32768, hi - 65536, hi) * 65536).int()
+
+
+def _f32_words(a: torch.Tensor) -> torch.Tensor:
+    return a.reshape(-1).float().contiguous().view(torch.int32)
+
+
+def pack_ba_outputs(params: Params, packed: torch.Tensor, obs: TrackObs,
+                    feats: FeatureState, stack: FrameStack) -> torch.Tensor:
+    """The packed track transfer widened with what the BA host layer needs,
+    as one flat int32 tensor (flame_tpu/core/pipeline.py::pack_ba_outputs):
+
+      [ packed u16 (N, 3)        : 3N/2 words
+      | u_obs u16 (B, N, 2)      : BN   x, y at 1/32 px; x == PACK_BA_FAIL
+                                        marks a failed match
+      | feats.xy u16 (N, 2)      : N    the anchor pixels (u_ref)
+      | idepth_mu f32 (N,)       : N
+      | id_slot (N,)             : N    pf_slot << 24 | feat_id mod 2^24
+      | stack.frame_id (P,)      : P
+      | stack.q f32 (P, 4)       : 4P
+      | stack.t f32 (P, 3)       : 3P ]
+
+    obs: one frame's TrackObs, or B frames' stacked on a leading axis.
+    Everything but u_obs is the state after the dispatch, u_ref included:
+    a feature re-anchored mid-batch pairs the earlier frames' matches with
+    its new anchor's id and pixel. Needs N even and poseframe_capacity
+    <= 128 (Flame checks both). ba.window.split_packed decodes it."""
+    u_obs = obs.u_obs if obs.u_obs.dim() == 3 else obs.u_obs[None]
+    success = obs.success if obs.success.dim() == 2 else obs.success[None]
+
+    def fx(v):
+        return torch.clamp(torch.nan_to_num(v, nan=0.0) * PACK_XY_SCALE
+                           + 0.5, 0, 65534).long()
+    uox = torch.where(success, fx(u_obs[..., 0]),
+                      torch.full_like(success, PACK_BA_FAIL, dtype=torch.long))
+    uo = torch.stack([uox, fx(u_obs[..., 1])], dim=-1)
+    xy = torch.stack([fx(feats.xy[:, 0]), fx(feats.xy[:, 1])], dim=-1)
+    id_slot = (feats.pf_slot.int() << 24) | (feats.feat_id.int() & 0xFFFFFF)
+    return torch.cat([_u16_pairs(packed), _u16_pairs(uo), _u16_pairs(xy),
+                      _f32_words(feats.idepth_mu), id_slot,
+                      stack.frame_id.int(), _f32_words(stack.q),
+                      _f32_words(stack.t)])
+
+
 def track_step(params: Params, K, Kinv, stack: FrameStack,
                feats: FeatureState, fnew: Frame, curr_pf_slot: int,
                prev_q, prev_t, do_detect: bool, id_base: int, seed_map):
-    """track_project_sync + (poseframe) detection + packing."""
+    """track_project_sync + (poseframe) detection + packing (widened by
+    pack_ba_outputs under do_ba)."""
     feats3, curr, member, stats, obs = track_project_sync(
         params, K, Kinv, stack, feats, fnew, curr_pf_slot)
     if do_detect:
         feats3 = _detect_and_insert(params, K, Kinv, stack, curr_pf_slot,
                                     feats3, curr, prev_q, prev_t, id_base,
                                     seed_map)
-    return (feats3, curr, member, stats, obs,
-            pack_track_outputs(feats3, curr, member))
+    packed = pack_track_outputs(feats3, curr, member)
+    if params.do_ba:
+        packed = pack_ba_outputs(params, packed, obs, feats3, stack)
+    return feats3, curr, member, stats, obs, packed
 
 
 def frame_track_step(params: Params, K, Kinv, stack: FrameStack,
@@ -646,8 +703,9 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
     "update_idepths" and "sync_graph" stages.
 
     Returns (fnew_last, stack, feats', curr_last, member_last, stats
-    summed over the batch, packed, graph', vtx_idepths, normals,
-    tri_validity, idepthmap, graph_scale', coverage, max_union): the last
+    summed over the batch, packed (widened under do_ba), graph',
+    vtx_idepths, normals, tri_validity, idepthmap, graph_scale', coverage,
+    max_union): the last
     is the largest per-tile count of union-bbox candidates, a device
     scalar; above MAX_PER_TILE_BATCH the per-frame maps lost triangles
     (the lowest-index ones of that tile), as on the TPU."""
@@ -667,13 +725,15 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
     with timed("update_idepths"):
         pq, pt = prev_q, prev_t
         stats = None
+        obs_b = []
         for b in range(B):
             slot = int(pf_slots[b])
             f = frame_mod.create(fids[b], qs[b], ts[b], imgs[b], params.pad)
             if pf_flags[b]:
                 frame_mod.insert(stack, slot, f)
-            feats, curr, member, st, _ = track_project_sync(
+            feats, curr, member, st, obs = track_project_sync(
                 params, K, Kinv, stack, feats, f, slot)
+            obs_b.append(obs)
             if det_flags[b]:
                 feats = _detect_and_insert(
                     params, K, Kinv, stack, slot, feats, curr, pq, pt,
@@ -684,6 +744,9 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
             stats = st if stats is None else stats + st
             pq, pt = f.q, f.t
         packed = pack_track_outputs(feats, curr, member)
+        if params.do_ba:
+            packed = pack_ba_outputs(params, packed, TrackObs(
+                *(torch.stack(f) for f in zip(*obs_b))), feats, stack)
 
     with timed("sync_graph"):
         post = _post_delaunay_inner(
@@ -714,8 +777,15 @@ def mesh_outputs(params: Params, K, Kinv, width: int, height: int, graph,
 
 
 def as_numpy_packed(packed: torch.Tensor) -> np.ndarray:
-    """The one device->host copy per frame: the packed snapshot as u16."""
-    return packed.cpu().numpy().astype(np.uint16)
+    """The one device->host copy per frame (host_packed gives it the
+    JAX package's host dtype)."""
+    return packed.cpu().numpy()
+
+
+def host_packed(arr: np.ndarray) -> np.ndarray:
+    """A landed packed transfer in the JAX package's host dtype: the
+    (N, 3) snapshot as u16; the flat widened BA transfer stays int32."""
+    return arr.astype(np.uint16) if arr.ndim == 2 else arr
 
 
 def reanchor_features(feats: FeatureState, K, Kinv, stack: FrameStack,

@@ -39,6 +39,12 @@ class ShardedFlame(Flame):
         self.mesh = mesh
         self._sharding_mesh = mesh
         params = params or Params()
+        if params.do_ba:
+            raise NotImplementedError(
+                "ShardedFlame with do_ba: the JAX package solves BA here "
+                "with its observation-sharded psum assembly "
+                "(parallel/distributed_ba.py), which comes with the "
+                "multi-card transport (ROADMAP section 1 item 6.3)")
         n = mesh.size
         if params.feature_capacity % n or params.edge_capacity % n:
             raise ValueError("feature/edge capacity must divide into the "

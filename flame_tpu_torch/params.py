@@ -113,8 +113,8 @@ class SolverParams:
 
 @dataclass(frozen=True)
 class BAParams:
-    """Windowed bundle adjustment (not ported yet; kept so configurations
-    round-trip between the packages)."""
+    """Windowed bundle adjustment over keyframe poses (ba/window.py; the
+    JAX package's params.py documents each field's measured trade-off)."""
 
     window_size: int = 8
     n_gn_iters: int = 5
@@ -188,7 +188,7 @@ class Params:
     auto_pf_max_disparity: float = 16.0
     auto_pf_depth: float = 5.0
 
-    # Bundle adjustment (not ported yet).
+    # Windowed bundle adjustment (ba/window.py).
     do_ba: bool = False
     ba: BAParams = dataclasses.field(default_factory=BAParams)
 

@@ -27,6 +27,8 @@ from flame_tpu.params import (DetectionParams, Params,  # noqa: E402
                               SolverParams)
 from flame_tpu_torch import _kernels, convert  # noqa: E402
 from flame_tpu_torch.core import frame as tframe  # noqa: E402
+from flame_tpu_torch.parallel import sharding  # noqa: E402
+from flame_tpu_torch.parallel.orchestrator import ShardedFlame  # noqa: E402
 
 FX = 100.0
 W, H = 160, 120
@@ -130,20 +132,75 @@ def test_mesh_and_stats(runs):
 
 
 def test_unported_paths_raise():
-    """Bundle adjustment and automatic poseframes are the paths left; the
-    throughput path (async topology, batching, comparison-poseframe
-    scoring) constructs."""
+    """Automatic poseframes are the path left; the throughput path (async
+    topology, batching, comparison-poseframe scoring) and bundle
+    adjustment construct, and BA rejects an odd feature_capacity and more
+    than 128 poseframe slots as the JAX package does."""
     K, Kinv = _K()
-    for p in (flame_tpu_torch.Params(do_ba=True),
-              flame_tpu_torch.Params(auto_poseframe=True)):
-        with pytest.raises(NotImplementedError):
-            flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv), p,
-                                  device="cpu")
+    with pytest.raises(NotImplementedError):
+        flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                              flame_tpu_torch.Params(auto_poseframe=True),
+                              device="cpu")
     flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
                           flame_tpu_torch.Params(
                               solver=flame_tpu_torch.SolverParams(
                                   async_topology=True, frame_batch=8)),
                           device="cpu")
+    fl = flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                               flame_tpu_torch.Params(do_ba=True),
+                               device="cpu")
+    assert fl._ba is not None
+    for bad in (dict(feature_capacity=511), dict(poseframe_capacity=129)):
+        with pytest.raises(ValueError):
+            flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                                  flame_tpu_torch.Params(do_ba=True, **bad),
+                                  device="cpu")
+        with pytest.raises(ValueError):
+            JFlame(W, H, K, Kinv, Params(do_ba=True, **bad))
+
+
+def test_sharded_flame_rejects_ba():
+    """The JAX package solves BA under a mesh with its observation-sharded
+    assembly, which the port does not have yet."""
+    K, Kinv = _K()
+    p = flame_tpu_torch.Params(do_ba=True, feature_capacity=512,
+                               edge_capacity=2048)
+    with pytest.raises(NotImplementedError):
+        ShardedFlame(W, H, np.array(K), np.array(Kinv), p,
+                     mesh=sharding.make_mesh(2, "cpu"), device="cpu")
+
+
+def test_failure_stats_match_jax():
+    """failure_stats() on a run whose first mesh overflows the triangle,
+    edge and vertex-degree capacities: the JAX package's keys and values
+    (plus the port's raster_max_union_candidates), and its
+    num_idepth_updates stat. Detections enter the graph at once
+    (idepth_var_init below idepth_var_max_graph), so the first mesh is
+    built from the same detections in both packages."""
+    jp = dataclasses.replace(
+        make_params(), idepth_var_init=0.005, triangle_capacity=96,
+        edge_capacity=64, solver=dataclasses.replace(make_params().solver,
+                                                     max_vertex_degree=4))
+    K, Kinv = _K()
+    jf = JFlame(W, H, K, Kinv, jp)
+    tf = flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                               convert.params_from_dict(
+                                   dataclasses.asdict(jp)), device="cpu")
+    for i in range(3):  # frame 2 is the first poseframe that meshes
+        q = np.array([1.0, 0, 0, 0], np.float32)
+        t = np.array([0.15 * i, 0, 0], np.float32)
+        jr = jf.update(i * 0.1, i, (jnp.asarray(q), jnp.asarray(t)),
+                       render(0.15 * i), i % 2 == 0)
+        assert tf.update(i * 0.1, i, (q, t), render(0.15 * i),
+                         i % 2 == 0) == jr
+    assert jr
+    js, ts = jf.failure_stats(), tf.failure_stats()
+    assert set(ts) == set(js) | {"raster_max_union_candidates"}
+    assert {k: ts[k] for k in js} == js
+    assert min(js[k] for k in ("tris_truncated", "edges_truncated",
+                               "edges_degree_dropped")) > 0
+    assert tf.stats.stats("num_idepth_updates") == \
+        jf.stats.stats("num_idepth_updates")
 
 
 def test_full_poseframe_slots_evict_the_oldest():

@@ -11,7 +11,9 @@ thread-block cluster per partition), whose outputs are also bit-equal for
 every number of partitions. The raster kernels' inside test (one view,
 and B views with one union binning, both binning on the device) is exact
 on truncated vertices (identical NaN masks), their values agree to 1e-5,
-and their largest per-tile counts equal the plain binnings'.
+and their largest per-tile counts equal the plain binnings'. The BA
+window solve, captured as one CUDA graph, equals its eager run (rtol
+1e-4: the sums use atomics) and replays new inputs.
 """
 
 import numpy as np
@@ -364,3 +366,31 @@ def test_wrappers_reject_bad_inputs(graph):
         raster_kernel.raster_mesh_batch(
             torch.zeros((8, 16), device=g.x.device),
             torch.zeros((8, 4), device=g.x.device), H, W)
+
+
+def _ba_buf(P, L, M, K, seed, device):
+    """A well-posed BA window (9 invalid rows) as one packed upload."""
+    from flame_tpu_torch.ba import window
+    buf = window.well_posed_window(P, L, M, K, seed, (20, 140), n_invalid=9)
+    return torch.as_tensor(buf, device=device)
+
+
+def test_graphed_ba_solve_matches_eager(cuda):
+    from flame_tpu_torch import BAParams
+    from flame_tpu_torch.ba import window
+    p = BAParams(max_landmarks=64, max_obs=256)
+    P, L, M = 4, p.max_landmarks, p.max_obs
+    Kn = np.array([[200.0, 0, 80], [0, 200, 60], [0, 0, 1]])
+    K = torch.tensor(Kn, dtype=torch.float32, device=cuda)
+    Kinv = torch.linalg.inv(K)
+    img = torch.rand(P, 130, 170, device=cuda) * 255
+
+    def solve(b):
+        return window._solve_packed(p, K, Kinv, b, img, 5, 2, P, L, M)
+    graphed = window._GraphedSolve(solve, _ba_buf(P, L, M, Kn, 0, cuda))
+    for seed in (0, 1):  # the second replays new inputs
+        b = _ba_buf(P, L, M, Kn, seed, cuda)
+        got, want = graphed(b).clone(), solve(b)
+        torch.testing.assert_close(got[:-1], want[:-1], rtol=1e-4,
+                                   atol=1e-5)
+        torch.testing.assert_close(got[-1], want[-1], rtol=1e-3, atol=1e-3)
