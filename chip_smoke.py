@@ -63,7 +63,22 @@ Phases (any failure raises and the script exits non-zero):
      with median relative error < 0.04 (at 640x480 coverage only: the JAX
      package misses 0.04 there too, and the error is printed beside its
      value), BA cuts the ATE below 0.8x and applied a solve, and K1 and K2
-     launch once per post-Delaunay step.
+     launch once per post-Delaunay step;
+ 10. the API residue at 640x480 with 4096 features: automatic poseframes
+     (auto_poseframe, is_poseframe=None) on phase 6's synchronous path (30
+     frames) and on phase 7's throughput path with host frames (32
+     frames), each declaring a number of poseframes within the range the
+     disparity test allows and meeting phase 6's map bounds, with the
+     host cost of each decision; the filtered map
+     (get_filtered_inverse_depth_map, K2) against the plain rasterizer on
+     the same state (same pixels, values within 1e-6); checkpoint.save
+     after frame 12 of a deterministic throughput run with BA on
+     mini-TUM 256x192 and load into a fresh Flame (bit-equal at once),
+     both continued for 12 frames under
+     torch.use_deterministic_algorithms (bit-equal maps, features and
+     poses), with the save and load times; the card's memory through
+     utils.load_tracker; run_synthetic for 10 frames into
+     chiprun_out/run_synthetic (median error within phase 6's bound).
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON summary (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -72,11 +87,14 @@ nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1045,7 +1063,6 @@ def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
     gate_err, else printed beside the JAX package's VGA_JAX_MAP_ERR);
     "noisy_ba" cuts the ATE of "noisy" below 0.8x and applied at least one
     solve; K1 and K2 launch once per post-Delaunay step in every run."""
-    import tempfile
     from flame_tpu_torch import _kernels
     from flame_tpu_torch.io import synthetic
     from flame_tpu_torch.utils import evaluation
@@ -1117,7 +1134,264 @@ def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
     return launches
 
 
+# Phase 10: the API residue.
+AUTO_PF_MAX_DISPARITY = 16.0  # Params' default (px at auto_pf_depth)
+CKPT_SAVE_AFTER = 12  # frame id after which the checkpoint phase saves
+CKPT_MORE = 12  # frames both runs continue for
+
+
+def auto_pf_range(n_frames):
+    """The poseframe counts the disparity test allows over n_frames of
+    scene(): the probe at the plane's depth moves FX * 0.08 / PLANE_Z px
+    per frame, so a poseframe follows every k = ceil(max / step) frames
+    after the first (one more frame either way at bootstrap and across a
+    batch)."""
+    k = math.ceil(AUTO_PF_MAX_DISPARITY / (FX * 0.08 / PLANE_Z))
+    return n_frames // (k + 1), -(-n_frames // k) + 1
+
+
+def auto_poseframe_path(smi, mode, n_frames):
+    """scene()'s plane with auto_poseframe: the synchronous path ("sync",
+    phase 6's Params) or the throughput path with host frames ("host",
+    phase 7's). Gates: the count of declared poseframes within
+    auto_pf_range, phase 6's map bounds, K1 and K2 once per post-Delaunay
+    step and K2b once per batched step."""
+    import flame_tpu_torch
+    from flame_tpu_torch import _kernels
+    K, Kinv, frames = scene(n_frames)
+    base = bench_params() if mode == "sync" else throughput_params()
+    fl = flame_tpu_torch.Flame(W, H, K, Kinv, base.replace(
+        auto_poseframe=True, auto_pf_max_disparity=AUTO_PF_MAX_DISPARITY,
+        auto_pf_depth=PLANE_Z))
+    want_ms = []
+    want = fl._want_poseframe
+
+    def timed_want(q, t):
+        t0 = time.perf_counter()
+        out = want(q, t)
+        want_ms.append(1000 * (time.perf_counter() - t0))
+        return out
+    fl._want_poseframe = timed_want
+    declared, seen = [], set()
+
+    def note_new():
+        new = set(fl._pf_slot_by_id) - seen
+        declared.extend(sorted(new))
+        seen.update(new)
+    _kernels.reset_launches()
+    t_run = time.perf_counter()
+    for i in range(n_frames):
+        fl.update(i / 30.0, i, pose(i), frames[i], None)
+        note_new()
+    path = "synchronous" if mode == "sync" else "throughput (host frames)"
+    label = (f"auto-poseframe {path} path 640x480, 4096 features, "
+             f"{n_frames} frames")
+    check_map(fl, label)  # flushes the frames still buffered
+    note_new()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = dict(_kernels.LAUNCHES)
+    del fl._want_poseframe  # the wrapper refers to fl
+    n_post = len(fl.stats.device_times_ms().get("sync_graph", []))
+    per_step = step_launches(False)
+    lo, hi = auto_pf_range(n_frames)
+    print(f"{label}: poseframes declared at frames {declared} ({len(declared)}"
+          f", allowed {lo}-{hi}); {fl._dispatches} batched steps, {n_post} "
+          f"post-Delaunay steps, {int(fl.stats.stats('pf_evictions'))} "
+          f"evictions; launches {launches}; run {run_s:.2f} s; "
+          f"_want_poseframe median {np.median(want_ms):.4f} ms host "
+          f"({len(want_ms)} calls) on {smi}")
+    if not lo <= len(declared) <= hi:
+        raise AssertionError(f"{label}: {len(declared)} poseframes")
+    if n_post < 1 or any(launches[k] != v * n_post
+                         for k, v in per_step.items()):
+        raise AssertionError(f"{label}: launches {launches} for {n_post} "
+                             f"post-Delaunay steps")
+    if launches["raster_mesh_batch"] != fl._dispatches \
+            or (mode == "host") != (fl._dispatches > 0):
+        raise AssertionError(f"{label}: raster_mesh_batch launches "
+                             f"{launches['raster_mesh_batch']} for "
+                             f"{fl._dispatches} batched steps")
+    return fl, launches
+
+
+def check_filtered_map(fl):
+    """get_filtered_inverse_depth_map (K2) against the plain tiled
+    rasterizer (rasterize.rasterize, torch ops on the card) over the
+    same triangles: the first n_tris that pass the triangle filters."""
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.ops import rasterize
+    tri_ok = (torch.arange(fl._tris.shape[0], device=fl.device)
+              < fl._n_tris) & fl._tri_validity
+    plain = rasterize.rasterize(fl._graph.pos, fl._tris, fl._vtx_idepths,
+                                tri_ok, H, W).cpu().numpy()
+    n0 = _kernels.LAUNCHES["raster_mesh"]
+    got = fl.get_filtered_inverse_depth_map()
+    if _kernels.LAUNCHES["raster_mesh"] != n0 + 1:
+        raise AssertionError("filtered map: raster_mesh did not launch once")
+    same_mask = bool((np.isnan(got) == np.isnan(plain)).all())
+    ok = ~np.isnan(plain)
+    err = float(np.abs(got[ok] - plain[ok]).max()) if ok.any() else 0.0
+    full = float(np.mean(~np.isnan(fl.get_inverse_depth_map())))
+    print(f"filtered map (K2) vs plain rasterizer: masks equal {same_mask}, "
+          f"max |diff| {err:.3g} (<= 1e-6); filtered coverage "
+          f"{ok.mean():.4f} of the dense map's {full:.4f}; "
+          f"{int(tri_ok.sum())} of {fl._n_tris} triangles pass the filters")
+    if not (same_mask and err <= 1e-6 and ok.mean() > 0.3):
+        raise AssertionError("filtered map departs from the plain version")
+
+
+def _ckpt_state(fl):
+    """The arrays a continued run computes from, on the host."""
+    g, f, st = fl._graph, fl._feats, fl._stack
+    return {k: v.detach().cpu().numpy() for k, v in dict(
+        idepthmap=fl._idepthmap, idepth_mu=f.idepth_mu,
+        idepth_var=f.idepth_var, xy=f.xy, valid=f.valid, x=g.x, q1=g.q1,
+        w1=g.w1, pf_q=st.q, pf_t=st.t, img_pad=st.img_pad).items()}
+
+
+def _ckpt_diff(a, b):
+    """Largest |difference| per array (NaN positions must agree)."""
+    out = {}
+    for k in a:
+        x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+        if not (np.isnan(x) == np.isnan(y)).all():
+            out[k] = float("inf")
+            continue
+        m = ~np.isnan(x)
+        out[k] = float(np.abs(x[m] - y[m]).max()) if m.any() else 0.0
+    return out
+
+
+def checkpoint_path(smi):
+    """A deterministic throughput run with BA (mini-TUM 256x192, phase 9's
+    configuration with async topology, frame_batch=4, solver.deterministic)
+    under torch.use_deterministic_algorithms: checkpoint.save after frame
+    CKPT_SAVE_AFTER, load into a fresh Flame on the card, then both
+    continue for CKPT_MORE frames. Gates: bit-equal right after load and
+    after continuing; a BA solve staged after the save."""
+    import dataclasses
+    import flame_tpu_torch
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.geometry import camera
+    from flame_tpu_torch.io import datasets, synthetic
+    from flame_tpu_torch.utils import checkpoint
+    n = CKPT_SAVE_AFTER + 1 + CKPT_MORE
+    p = mini_tum_params(True)
+    params = p.replace(solver=dataclasses.replace(
+        p.solver, async_topology=True, frame_batch=4, deterministic=True))
+    with tempfile.TemporaryDirectory() as root:
+        meta = synthetic.generate_mini_tum(root, n_frames=n, width=256,
+                                           height=192, fx=210.0)
+        frames = datasets.load_tum(root, max_frames=n)
+        imgs = [fr.load_image() for fr in frames]
+        path = os.path.join(root, "flame.ckpt.npz")
+        Kt = torch.as_tensor(meta["K"], dtype=torch.float32)
+        Kinv = camera.inv_k(Kt)
+
+        def run(fl, lo, hi):
+            for i in range(lo, hi):
+                fr = frames[i]
+                fl.update(fr.time, fr.frame_id, (fr.q, fr.t), imgs[i],
+                          i % 2 == 0)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _kernels.reset_launches()
+                fl = flame_tpu_torch.Flame(256, 192, Kt, Kinv, params)
+                run(fl, 0, CKPT_SAVE_AFTER + 1)
+                pending = len(fl._batch_pending)
+                torch.cuda.synchronize()
+                # save() quiesces first; timed apart: the buffered frames,
+                # the rest of the quiesce (the BA solve joined), the write.
+                t0 = time.perf_counter()
+                fl._flush_batch()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                checkpoint._quiesce(fl)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                checkpoint.save(path, fl)
+                flush_ms = 1000 * (t1 - t0)
+                quiesce_ms = 1000 * (t2 - t1)
+                save_ms = 1000 * (time.perf_counter() - t2)
+                fl2 = flame_tpu_torch.Flame(256, 192, Kt, Kinv, params)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                checkpoint.load(path, fl2)
+                torch.cuda.synchronize()
+                load_ms = 1000 * (time.perf_counter() - t0)
+                size_mb = os.path.getsize(path) / 1e6
+                at_load = _ckpt_diff(_ckpt_state(fl), _ckpt_state(fl2))
+                solves = fl.stats.stats("ba_single_solves")
+                run(fl, CKPT_SAVE_AFTER + 1, n)
+                run(fl2, CKPT_SAVE_AFTER + 1, n)
+                after = _ckpt_diff(_ckpt_state(fl), _ckpt_state(fl2))
+                torch.cuda.synchronize()
+                launches = dict(_kernels.LAUNCHES)
+        finally:
+            torch.use_deterministic_algorithms(was)
+    notes = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+    label = "checkpoint, mini-TUM 256x192 deterministic throughput run + BA"
+    print(f"{label}: after frame {CKPT_SAVE_AFTER}: quiesce = {pending} "
+          f"buffered frames run {flush_ms:.2f} ms + the rest (the BA solve "
+          f"joined) {quiesce_ms:.2f} ms; save {save_ms:.2f} ms, load "
+          f"{load_ms:.2f} ms, {size_mb:.2f} MB, on {smi}")
+    print(f"{label}: largest |diff| right after load {max(at_load.values())};"
+          f" after {CKPT_MORE} more frames each {after}; BA solves staged "
+          f"{int(solves)} before the save, "
+          f"{int(fl.stats.stats('ba_single_solves'))} / "
+          f"{int(fl2.stats.stats('ba_single_solves'))} at the end "
+          f"(continued / loaded); launches {launches}")
+    for w in notes:
+        print(f"{label}: deterministic-mode warning: {w}")
+    if max(at_load.values()) != 0.0 or max(after.values()) != 0.0 \
+            or fl.stats.stats("ba_single_solves") <= solves \
+            or fl2.stats.stats("ba_single_solves") \
+            != fl.stats.stats("ba_single_solves"):
+        raise AssertionError(f"{label}: the resumed run departs")
+    return launches
+
+
+def support_path(smi):
+    """utils.load_tracker on the card, and run_synthetic for 10 frames
+    into chiprun_out/run_synthetic (median error within phase 6's 0.01)."""
+    from flame_tpu_torch import _kernels, run_synthetic
+    from flame_tpu_torch.utils import load_tracker
+    m = load_tracker.LoadTracker().mem()
+    print(f"load tracker: card memory free {m.device_free_bytes / 2**30:.3f}"
+          f" GiB of {m.device_total_bytes / 2**30:.3f} GiB "
+          f"(torch.cuda.mem_get_info), this process's allocator "
+          f"{m.device_allocated_bytes / 2**30:.3f} GiB; host RSS "
+          f"{m.process_rss_kb / 2**20:.3f} GiB; on {smi}")
+    _kernels.reset_launches()
+    err = run_synthetic.main(["--frames", "10", "--out",
+                              os.path.join("chiprun_out", "run_synthetic")])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    print(f"run_synthetic 320x240, 10 frames: median relative error "
+          f"{err:.5f} (<= 0.01); launches {launches}")
+    if not err <= 0.01 or launches["raster_mesh"] < 1:
+        raise AssertionError("run_synthetic out of bounds")
+    return launches
+
+
+def api_residue(smi):
+    """Phase 10; returns the launch counts of its runs."""
+    fl, sync = auto_poseframe_path(smi, "sync", 30)
+    check_filtered_map(fl)
+    del fl
+    _, host = auto_poseframe_path(smi, "host", 32)
+    return [sync, host, checkpoint_path(smi), support_path(smi)]
+
+
 def main():
+    # cuBLAS picks its workspace per stream unless told; a fixed one keeps
+    # its matmuls reproducible under torch.use_deterministic_algorithms
+    # (phase 10). Read when the first cuBLAS handle is made.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = environment()
     build()
     dev = torch.device("cuda")
@@ -1143,7 +1417,7 @@ def main():
                      VGA_FX, 2, [("true", False, vga_params(True)),
                                  ("noisy", True, vga_params(False)),
                                  ("noisy_ba", True, vga_params(True))],
-                     gate_err=False)]
+                     gate_err=False)] + api_residue(smi)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",

@@ -7,17 +7,25 @@ reshape + argmax. The reference epiline is evaluated at (x, y), not at the
 reference's swapped (row, col).
 """
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from flame_tpu_torch.geometry import epipolar
 
 
-def detect(geo_ref_to_prev: epipolar.EpiGeo, gradx: torch.Tensor,
+class DetectionResult(NamedTuple):
+    best_xy: torch.Tensor  # (Cy, Cx, 2) best pixel per cell
+    best_score: torch.Tensor  # (Cy, Cx) epipolar gradient^2 (0 = none)
+    score_map: torch.Tensor  # (H, W) |epigrad|, NaN where masked
+
+
+def _cells(geo_ref_to_prev: epipolar.EpiGeo, gradx: torch.Tensor,
            grady: torch.Tensor, min_grad_mag: float, win_size: int,
-           border: int, row_offset: int = 0):
-    """Per-cell best epipolar-gradient pixel: (best_xy (Cy, Cx, 2),
-    best_score (Cy, Cx), 0 = none)."""
+           border: int, row_offset: int):
+    """(best_xy, best_score, ok, epigrad): the per-cell winners, and the
+    per-pixel mask and epipolar gradient they were chosen from."""
     H, W = gradx.shape
     dev = gradx.device
     thresh2 = min_grad_mag * min_grad_mag
@@ -51,7 +59,21 @@ def detect(geo_ref_to_prev: epipolar.EpiGeo, gradx: torch.Tensor,
     best_score = torch.gather(cells, -1, best[..., None])[..., 0]
     by = best // win_size + torch.arange(Cy, device=dev)[:, None] * win_size
     bx = best % win_size + torch.arange(Cx, device=dev)[None, :] * win_size
-    return torch.stack([bx, by], dim=-1).float(), best_score
+    return torch.stack([bx, by], dim=-1).float(), best_score, ok, epigrad
+
+
+def detect(geo_ref_to_prev: epipolar.EpiGeo, gradx: torch.Tensor,
+           grady: torch.Tensor, min_grad_mag: float, win_size: int,
+           border: int, row_offset: int = 0) -> DetectionResult:
+    """Per-cell best epipolar-gradient pixel, and the per-pixel score map
+    the debug image draws. geo_ref_to_prev: the geometry from the
+    detection (reference) frame to the comparison frame."""
+    best_xy, best_score, ok, epigrad = _cells(
+        geo_ref_to_prev, gradx, grady, min_grad_mag, win_size, border,
+        row_offset)
+    score_map = torch.where(ok, torch.abs(epigrad),
+                            torch.full_like(epigrad, float("nan")))
+    return DetectionResult(best_xy, best_score, score_map)
 
 
 def occupied_cells(feat_xy: torch.Tensor, feat_valid: torch.Tensor,
@@ -76,9 +98,11 @@ def detect_packed(geo_ref_to_prev: epipolar.EpiGeo, gradx: torch.Tensor,
                   feat_valid: torch.Tensor, min_grad_mag: float,
                   win_size: int, border: int,
                   row_offset: int = 0) -> torch.Tensor:
-    """detect() + occupied-cell masking: (Cy*Cx, 3) rows [x, y, take]."""
-    best_xy, best_score = detect(geo_ref_to_prev, gradx, grady,
-                                 min_grad_mag, win_size, border, row_offset)
+    """detect()'s winners + occupied-cell masking: (Cy*Cx, 3) rows
+    [x, y, take]."""
+    best_xy, best_score, _, _ = _cells(geo_ref_to_prev, gradx, grady,
+                                       min_grad_mag, win_size, border,
+                                       row_offset)
     cy, cx = best_score.shape
     occ = occupied_cells(feat_xy, feat_valid, win_size, cy, cx)
     take = (best_score > 0) & ~occ

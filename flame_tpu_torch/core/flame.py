@@ -39,11 +39,18 @@ RCM-order edge ranks with each topology.
 When every poseframe slot is taken the oldest poseframe is evicted and
 its features re-anchored on the newest survivor (prune_poseframes).
 
+With auto_poseframe, update(is_poseframe=None) declares a poseframe when
+the current one has become a poor stereo reference (_want_poseframe, on
+float64 host copies of the poses: the probe disparity against
+auto_pf_max_disparity, then the keyframe score's hard rejections). Only
+that branch copies the caller's pose to the host.
+
 With do_ba, windowed bundle adjustment (ba/window.py) runs beside every
 path: the packed transfer is widened with the poseframes' matches and a
 state snapshot, and after each single or batched update BundleAdjuster
-.step applies a solve that has landed or stages a new one. Not ported,
-and rejected at construction: automatic poseframes (auto_poseframe).
+.step applies a solve that has landed or stages a new one.
+
+utils/checkpoint.py saves and restores the whole state.
 """
 
 import collections
@@ -56,9 +63,11 @@ import numpy as np
 import torch
 
 from flame_tpu_torch.ba import window as ba_window
+from flame_tpu_torch.core import detection, keyframe, pipeline
 from flame_tpu_torch.core import frame as frame_mod
-from flame_tpu_torch.core import pipeline
+from flame_tpu_torch.geometry import epipolar
 from flame_tpu_torch.mesh import delaunay
+from flame_tpu_torch.ops import rasterize
 from flame_tpu_torch.optimize import nltgv2, smoother_kernel, topology
 from flame_tpu_torch.parallel import halo
 from flame_tpu_torch.params import Params
@@ -143,6 +152,14 @@ class _AsyncWork:
         return self._result
 
 
+def _f64(x) -> np.ndarray:
+    """A float64 host copy of a pose component (waits for the card when
+    x is a CUDA tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().astype(np.float64)
+    return np.asarray(x, np.float64)
+
+
 class _Topo(NamedTuple):
     """A triangulation on both sides: host (tris_slots, edges_sorted,
     ranks, perm; perm is the RCM order under a banded smoother, else
@@ -169,10 +186,6 @@ class Flame:
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        if p.auto_poseframe:
-            raise NotImplementedError(
-                "flame_tpu_torch does not port automatic poseframes; set "
-                "auto_poseframe=False")
         if p.do_ba and p.feature_capacity % 2:
             raise ValueError("do_ba needs an even feature_capacity "
                              "(u16-pair words in pack_ba_outputs)")
@@ -203,6 +216,9 @@ class Flame:
                                  device=self.device)
         self.Kinv = torch.as_tensor(np.asarray(Kinv), dtype=torch.float32,
                                     device=self.device)
+        # Host copies for _want_poseframe, which runs on the host.
+        self._K_np = self.K.cpu().numpy().astype(np.float64)
+        self._Kinv_np = self.Kinv.cpu().numpy().astype(np.float64)
         self.stats = StatsTracker(device=self.device)
         self.inited = False
         self.num_imgs = 0
@@ -214,6 +230,8 @@ class Flame:
         self._pf_slot_by_id: Dict[int, int] = {}
         self._curr_pf_slot: Optional[int] = None
         self._curr_pf_id: Optional[int] = None
+        # Float64 host pose of the current poseframe (auto_poseframe).
+        self._curr_pf_pose_np = None
         self._fnew = None
         self._fprev = None
         self._feat_id_counter = 0
@@ -295,9 +313,11 @@ class Flame:
                is_poseframe: Optional[bool] = None) -> bool:
         """Process one posed image; pose = (q wxyz, t) camera-to-world,
         img a (H, W) uint8 numpy array ("host") or a uint8 tensor on the
-        Flame's device ("resident"). Returns False while bootstrapping or
-        when the frame cannot produce a mesh; a frame buffered for a
-        batch returns True."""
+        Flame's device ("resident"). is_poseframe=None leaves the decision
+        to the automatic selector under params.auto_poseframe, else means
+        False (the reference's caller decides, flame.h:145-147). Returns
+        False while bootstrapping or when the frame cannot produce a mesh;
+        a frame buffered for a batch returns True."""
         p = self.params
         self.stats.tick("update")
         self._entry_stamp[frame_id] = perf_counter()
@@ -306,12 +326,23 @@ class Flame:
             for k in list(self._entry_stamp)[:2048]:
                 del self._entry_stamp[k]
         self._poll_fetches()
+        q_np = t_np = None
+        if is_poseframe is None and p.auto_poseframe:
+            q_np, t_np = _f64(pose[0]), _f64(pose[1])
+            is_poseframe = self._want_poseframe(q_np, t_np)
+        is_poseframe = bool(is_poseframe)
         q = self._as_pose_tensor(pose[0])
         t = self._as_pose_tensor(pose[1])
-        is_poseframe = bool(is_poseframe)
 
         if self._batch_ok(img):
-            self._batch_pending.append((frame_id, q, t, img, is_poseframe))
+            if is_poseframe and p.auto_poseframe:
+                # Later buffered frames compare against this pose (its slot
+                # is allocated at dispatch); against the stale poseframe
+                # each of them could trip the disparity test and declare
+                # back-to-back poseframes that the single path would not.
+                self._curr_pf_pose_np = self._host_pose(q, t, q_np, t_np)
+            self._batch_pending.append((frame_id, q, t, img, is_poseframe,
+                                        q_np, t_np))
             if len(self._batch_pending) < int(p.solver.frame_batch):
                 self.stats.tock("update")
                 return True
@@ -319,7 +350,16 @@ class Flame:
             self._batch_pending = []
             return self._update_batch(frames)
         self._flush_batch()
-        return self._update_single(frame_id, q, t, img, is_poseframe)
+        return self._update_single(frame_id, q, t, img, is_poseframe, q_np,
+                                   t_np)
+
+    @staticmethod
+    def _host_pose(q, t, q_np, t_np):
+        """The float64 host pose: the copies update() took, else copies of
+        the pose tensors."""
+        if q_np is None:
+            return _f64(q), _f64(t)
+        return q_np, t_np
 
     def _as_pose_tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -359,9 +399,9 @@ class Flame:
             return
         pending = self._batch_pending
         self._batch_pending = []
-        for fid, q, t, img, is_pf in pending:
+        for fid, q, t, img, is_pf, q_np, t_np in pending:
             self.stats.tick("update")
-            self._update_single(fid, q, t, img, is_pf)
+            self._update_single(fid, q, t, img, is_pf, q_np, t_np)
         self.stats.tick("update")
 
     def _prepare_upload(self, img) -> torch.Tensor:
@@ -380,15 +420,15 @@ class Flame:
             return img.to(self.device)
         return torch.as_tensor(np.asarray(img), device=self.device)
 
-    def _update_single(self, frame_id: int, q, t, img,
-                       is_poseframe: bool) -> bool:
+    def _update_single(self, frame_id: int, q, t, img, is_poseframe: bool,
+                       q_np=None, t_np=None) -> bool:
         p = self.params
         img = self._prepare_upload(img)
         fast = (self.inited and self._curr_pf_slot is not None
                 and self._fnew is not None
                 and (self._n_valid > 0 or bool(self._packed_queue)))
         if is_poseframe:
-            self._new_poseframe(frame_id)
+            self._new_poseframe(frame_id, q, t, q_np, t_np)
         self.num_imgs += 1
 
         with self.stats.timed("frame_creation"):
@@ -495,9 +535,9 @@ class Flame:
                           else (prev_q, prev_t))
         fids, qs, ts = [], [], []
         pf_flags, det_flags, pf_slots, id_bases = [], [], [], []
-        for fid, q, t, _img, is_pf in frames:
+        for fid, q, t, _img, is_pf, q_np, t_np in frames:
             if is_pf:
-                self._new_poseframe(fid)
+                self._new_poseframe(fid, q, t, q_np, t_np)
             det = bool(is_pf and (p.detection.continuous
                                   or self.num_data_updates < 1))
             self.num_imgs += 1
@@ -915,11 +955,32 @@ class Flame:
     # Poseframes (reference flame.h:155-179, flame.cc:554-706).
     # ------------------------------------------------------------------
 
-    def _new_poseframe(self, frame_id: int):
+    def _new_poseframe(self, frame_id: int, q, t, q_np=None, t_np=None):
         slot = self._alloc_pf_slot(frame_id)
         self._pf_slot_by_id[frame_id] = slot
         self._curr_pf_slot = slot
         self._curr_pf_id = frame_id
+        if self.params.auto_poseframe:
+            self._curr_pf_pose_np = self._host_pose(q, t, q_np, t_np)
+
+    def _want_poseframe(self, q_np: np.ndarray, t_np: np.ndarray) -> bool:
+        """Automatic poseframe decision: the current poseframe has become a
+        poor stereo reference for the new pose when the probe disparity at
+        the image centre and depth auto_pf_depth reaches
+        auto_pf_max_disparity, or the keyframe score hard-rejects it."""
+        if self._curr_pf_slot is None or self._curr_pf_pose_np is None:
+            return True
+        p = self.params
+        q_rel, t_rel = keyframe.KeyframeSelector._relative(
+            *self._curr_pf_pose_np, q_np, t_np)
+        disp = keyframe.test_disparity(
+            self._K_np, self._Kinv_np, q_rel, t_rel,
+            (self.width / 2.0, self.height / 2.0), p.auto_pf_depth)
+        if disp >= p.auto_pf_max_disparity:
+            return True
+        s = keyframe.score(self.width, self.height, self._K_np,
+                           self._Kinv_np, q_rel, t_rel)
+        return s <= -np.finfo(np.float32).max / 2
 
     def _alloc_pf_slot(self, frame_id: int) -> int:
         if self._pf_free:
@@ -1002,6 +1063,16 @@ class Flame:
     def get_inverse_depth_map(self) -> np.ndarray:
         self._flush_batch()
         return self._idepthmap.cpu().numpy()
+
+    def get_filtered_inverse_depth_map(self) -> np.ndarray:
+        """The dense map over the triangles that pass the triangle filters
+        only (reference flame.h:217-228); K2 on the card."""
+        self._flush_batch()
+        tri_ok = (torch.arange(self._tris.shape[0], device=self.device)
+                  < self._n_tris) & self._tri_validity
+        return rasterize.rasterize_auto(
+            self._graph.pos, self._tris, self._vtx_idepths, tri_ok,
+            self.height, self.width).cpu().numpy()
 
     def get_inverse_depth_mesh(self):
         """Compacted mesh: vertices, idepths, w1, w2, normals, triangles,
@@ -1097,3 +1168,54 @@ class Flame:
         return visualization.draw_normals(
             self._gray(), mesh["vertices"], mesh["normals"],
             mesh["triangles"], mesh["tri_validity"])
+
+    def get_debug_image_detections(self) -> np.ndarray:
+        """The detection score map and its cell winners (reference
+        drawDetections, flame.cc:2363-2403), detection run afresh on the
+        current poseframe against the newest frame that is not the
+        poseframe itself (after a non-poseframe update the previous frame
+        is the poseframe, and a zero baseline would blank the map)."""
+        if self._fprev is None or self._curr_pf_slot is None:
+            return visualization.to_rgb(self._gray())
+        p = self.params
+        slot = self._curr_pf_slot
+        new_is_pf = self._pf_slot_by_id.get(int(self._fnew.frame_id)) == slot
+        cmp = self._fprev if new_is_pf else self._fnew
+        geo = epipolar.load_relative(
+            self.K, self.Kinv, (self._stack.q[slot], self._stack.t[slot]),
+            (cmp.q, cmp.t))
+        res = detection.detect(geo, self._stack.gradx[slot],
+                               self._stack.grady[slot],
+                               p.detection.min_grad_mag,
+                               p.detection.win_size, p.border)
+        winners = res.best_xy[res.best_score > 0].cpu().numpy()
+        return visualization.draw_detections(
+            self._gray(), res.score_map.cpu().numpy(), winners)
+
+    def get_debug_image_matches(self) -> np.ndarray:
+        """Valid features coloured by their last search outcome, in the
+        reference's drawMatches palette (flame.cc:1699-1746, BGR there):
+        reference-patch gradient failure cyan (white while the feature has
+        no updates), ambiguous match red, max cost yellow; success blends
+        blue -> green over 0..30 updates."""
+        img = visualization.to_rgb(self._gray())
+        xy = self._curr.xy.cpu().numpy()
+        valid = self._curr.valid.cpu().numpy()
+        status = self._feats.search_status.cpu().numpy()
+        nupd = self._feats.num_updates.cpu().numpy()
+        Hh, Ww = img.shape[:2]
+        for s in np.nonzero(valid)[0]:
+            x, y = int(round(xy[s, 0])), int(round(xy[s, 1]))
+            st = int(status[s])
+            if st == 1:  # FAIL_REF_PATCH_GRADIENT
+                c = (255, 255, 255) if nupd[s] == 0 else (0, 255, 255)
+            elif st == 2:  # FAIL_AMBIGUOUS_MATCH
+                c = (255, 0, 0)
+            elif st == 3:  # FAIL_MAX_COST
+                c = (255, 255, 0)
+            else:  # SUCCESS: blue -> green by update count
+                a = min(max(nupd[s] / 30.0, 0.0), 1.0)
+                c = (0, int(255 * a), int(255 * (1 - a)))
+            img[max(0, y - 2):min(Hh, y + 3),
+                max(0, x - 2):min(Ww, x + 3)] = c
+        return img

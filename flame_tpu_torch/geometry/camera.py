@@ -24,3 +24,10 @@ def project(K: torch.Tensor, p_cam: torch.Tensor) -> torch.Tensor:
     x = K[0, 0] * p_cam[..., 0] + K[0, 2] * p_cam[..., 2]
     y = K[1, 1] * p_cam[..., 1] + K[1, 2] * p_cam[..., 2]
     return torch.stack([x, y], dim=-1) / p_cam[..., 2:3]
+
+
+def backproject(Kinv: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) -> unit-depth rays (..., 3) in the camera frame."""
+    x = Kinv[0, 0] * uv[..., 0] + Kinv[0, 2]
+    y = Kinv[1, 1] * uv[..., 1] + Kinv[1, 2]
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)

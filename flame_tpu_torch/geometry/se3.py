@@ -194,3 +194,15 @@ def log(T) -> torch.Tensor:
 def rotation_angle(q: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.atan2(torch.linalg.norm(q[..., 1:], dim=-1),
                              torch.abs(q[..., 0]))
+
+
+def stack(transforms):
+    """A list of (q, t) transforms as batched (qs, ts)."""
+    return (torch.stack([T[0] for T in transforms]),
+            torch.stack([T[1] for T in transforms]))
+
+
+def index(T, i):
+    """Transform i of a batched (q, t)."""
+    q, t = T
+    return q[i], t[i]

@@ -1,12 +1,13 @@
-"""Host Delaunay triangulation through the shared native core.
+"""Host Delaunay triangulation through the native core.
 
-The port's own ctypes loader for flame_tpu/native/delaunay.cpp
-(incremental Bowyer-Watson with symbolic jitter). The library is built
-with g++ into flame_tpu_torch/_build/, named by a hash of the source, and
-a failed build raises: there is deliberately no scipy fallback, whose
-triangle order differs and would break topology parity with the JAX
-package. Output contract: triangles (T, 3) with positive signed area in
-y-down pixel space, unique sorted edges (E, 2), neighbours (T, 3).
+A ctypes loader for the port's own copy of the JAX package's Delaunay
+core, csrc/delaunay.cpp (incremental Bowyer-Watson with symbolic
+jitter). The library is built with g++ into flame_tpu_torch/_build/,
+named by a hash of the source, and a failed build raises: there is
+deliberately no scipy fallback, whose triangle order differs and would
+break topology parity with the JAX package. Output contract: triangles
+(T, 3) with positive signed area in y-down pixel space, unique sorted
+edges (E, 2), neighbours (T, 3).
 """
 
 import ctypes
@@ -19,8 +20,7 @@ from typing import NamedTuple
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "flame_tpu", "native",
-                   "delaunay.cpp")
+SRC = os.path.join(_PKG, "csrc", "delaunay.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()

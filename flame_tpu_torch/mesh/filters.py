@@ -95,3 +95,16 @@ def vertex_normals(geom: CornerGeometry, tris, tri_mask,
     norms = torch.linalg.norm(acc, dim=-1, keepdim=True)
     return torch.where(norms > 1e-8, acc / torch.clamp(norms, min=1e-12),
                        torch.zeros_like(acc))
+
+
+def plane_param_normal(K, uv, idepth, w1, w2) -> torch.Tensor:
+    """Outward unit normal from the NLTGV2 plane parameters (w1, w2)
+    (reference flame.cc:2643-2663), batched over vertices."""
+    fx, fy = K[0, 0], K[1, 1]
+    a = w1 * uv[..., 0] + w2 * uv[..., 1] - w1 * fx - w2 * fy
+    b = fx * fx * w1 * w1 + fy * fy * w2 * w2 + (idepth - a) ** 2
+    d = 1.0 / torch.sqrt(torch.clamp(b, min=1e-24))
+    n = torch.stack([fx * w1 * d, fy * w2 * d, (idepth - a) * d], dim=-1)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                        min=1e-12)
+    return -n

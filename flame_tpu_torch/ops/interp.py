@@ -1,9 +1,9 @@
-"""Bilinear sampling by 4-corner gathers.
+"""Bilinear and nearest sampling by gathers.
 
 Port of flame_tpu/ops/interp.py without its packed-corner tables (a TPU
 gather workaround): each sample gathers its four corners directly. The
-value at integer (x0, y0) is img[y0, x0]; positions are clamped to the
-interior [0, W-1.001] x [0, H-1.001] so masked lanes stay total.
+value at integer (x0, y0) is img[y0, x0]; bilinear positions are clamped
+to the interior [0, W-1.001] x [0, H-1.001] so masked lanes stay total.
 """
 
 import torch
@@ -43,3 +43,18 @@ def bilinear_stack(imgs: torch.Tensor, frame_idx: torch.Tensor,
     return _sample(imgs.reshape(-1).float(), W, base, x, y, torch.floor(x),
                    torch.floor(y))
 
+
+
+def bilinear_uv(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """bilinear() at stacked (..., 2) positions in (x, y) order."""
+    return bilinear(img, uv[..., 0], uv[..., 1])
+
+
+def nearest(img: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    """Nearest-pixel lookup, rounding half up and clamping to the image
+    (reference fast_roundf, flame.cc:749-752)."""
+    H, W = img.shape
+    xi = torch.clamp(torch.floor(x + 0.5).long(), 0, W - 1)
+    yi = torch.clamp(torch.floor(y + 0.5).long(), 0, H - 1)
+    return img.reshape(-1)[yi * W + xi]

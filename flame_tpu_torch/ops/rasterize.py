@@ -22,6 +22,10 @@ then integers, so the inside test is exact in float32 for images under
     views with one shared binning pass over the union of each
     triangle's per-view bboxes (pallas_raster.rasterize_batch). When no
     tile overflows it gives each view the map the per-view form gives.
+  * rasterize_auto / rasterize_batch_auto: the CUDA kernels K2 / K2b for
+    tensors on the card, these plain versions on the CPU
+    (ops/raster_kernel.py); interpolate_mesh draws through
+    rasterize_auto.
 """
 
 from typing import NamedTuple
@@ -262,3 +266,30 @@ def rasterize_batch(verts, tris, vals, tri_valid, height: int, width: int,
     cand = tile_candidates_batch(verts, tris, vals, tri_valid, height,
                                  width, truncate, tile_h, max_per_tile)
     return finish(eval_tiles_batch(cand.cdata, tile_h), height, width)
+
+
+def rasterize_auto(verts, tris, vals, tri_valid, height: int,
+                   width: int) -> torch.Tensor:
+    """(H, W) map, NaN where uncovered: the tile kernel K2 for tensors on
+    the card, the plain tiled rasterizer on the CPU."""
+    from flame_tpu_torch.ops import raster_kernel  # it imports this module
+    return raster_kernel.rasterize(verts, tris, vals, tri_valid, height,
+                                   width)
+
+
+def rasterize_batch_auto(verts, tris, vals, tri_valid, height: int,
+                         width: int) -> torch.Tensor:
+    """One triangle set from B views: verts (B, V, 2), vals (B, V),
+    tri_valid (B, T) -> (B, H, W); the batched kernel K2b for tensors on
+    the card, the plain shared binning on the CPU."""
+    from flame_tpu_torch.ops import raster_kernel
+    return raster_kernel.rasterize_batch(verts, tris, vals, tri_valid,
+                                         height, width)
+
+
+def interpolate_mesh(verts, tris, vals, tri_valid, vtx_valid, height: int,
+                     width: int) -> torch.Tensor:
+    """interpolateMesh (reference image_utils.cc:373-396): a triangle is
+    drawn iff it and its three vertices are valid."""
+    ok = tri_valid & torch.all(vtx_valid[tris], dim=1)
+    return rasterize_auto(verts, tris, vals, ok, height, width)

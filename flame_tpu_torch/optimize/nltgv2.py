@@ -254,6 +254,13 @@ def data_cost(p: RegularizerParams, g: GraphState) -> torch.Tensor:
     return torch.sum(torch.where(g.vtx_mask, c, torch.zeros_like(c)))
 
 
+def total_cost(p: RegularizerParams, g: GraphState) -> torch.Tensor:
+    """The reference's logged cost (flame.cc:2172-2177): data_factor times
+    the raw smoothness plus the raw data term. It is not the functional
+    the iteration minimizes (energy)."""
+    return smoothness_cost(p, g) + data_cost(p, g)
+
+
 def energy(p: RegularizerParams, g: GraphState) -> torch.Tensor:
     """The functional the iteration minimizes: raw NLTGV2 smoothness plus
     data_factor times the weighted L1 data term."""

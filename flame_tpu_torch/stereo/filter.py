@@ -2,8 +2,9 @@
 
 Port of flame_tpu/stereo/filter.py (reference inverse_depth_filter.cc):
 predict, the +/-sigma epipolar search region with Liang-Barsky clipping
-and length clamps, the stacked patch search, and Gaussian fusion with a
-chi^2 gate. Every function is total over the feature batch; the
+and length clamps, the patch search (one reference image, or each
+feature's own poseframe of a stack), and Gaussian fusion with a chi^2
+gate. Every function is total over the feature batch; the
 reference's early returns become masks.
 """
 
@@ -100,23 +101,19 @@ class SearchResult(NamedTuple):
     residual: torch.Tensor  # (N,)
 
 
-def search_stacked(params: FilterParams, geo_batch: epipolar.EpiGeo,
-                   rescale_factor: torch.Tensor, imgs_ref: torch.Tensor,
-                   ref_frame_idx: torch.Tensor, img_cmp: torch.Tensor,
-                   u_ref: torch.Tensor, u_ref_padded: torch.Tensor,
-                   u_start: torch.Tensor, u_end: torch.Tensor,
-                   n_steps: int) -> SearchResult:
-    """Sample each feature's 5-tap reference patch from its own anchor
-    poseframe in the stack (F, H, W), gate on the patch gradient and run
-    the line-stereo match (reference :184-266)."""
-    epi_ref = epipolar.reference_epiline(geo_batch, u_ref)  # (N, 2)
-    taps = torch.arange(-2.0, 3.0, device=u_ref.device)
+def _patch_positions(epi_ref, rescale_factor, u_ref_padded):
+    """The 5-tap reference-patch positions u_ref_padded + j * epi_ref *
+    rescale, j in -2..2: (N, 5, 2)."""
+    taps = torch.arange(-2.0, 3.0, device=u_ref_padded.device)
     off = taps[None, :, None] * (epi_ref * rescale_factor[:, None])[:, None]
-    ppos = u_ref_padded[:, None, :] + off  # (N, 5, 2)
-    fidx = ref_frame_idx[:, None].expand(-1, 5)
-    ref_patch = interp.bilinear_stack(imgs_ref, fidx, ppos[..., 0],
-                                      ppos[..., 1])
+    return u_ref_padded[:, None, :] + off
 
+
+def _gate_and_match(params: FilterParams, ref_patch, img_cmp, u_start,
+                    u_end, rescale_factor, n_steps: int) -> SearchResult:
+    """The patch-gradient gate, the line-stereo match and the status
+    mapping, shared by search and search_stacked so that both map
+    failures alike."""
     grads = torch.abs(ref_patch[:, 1:] - ref_patch[:, :-1])
     ref_grad_ok = torch.amax(grads, dim=-1) >= params.min_grad_mag
     m = line_stereo.match(ref_patch, img_cmp, u_start, u_end,
@@ -129,6 +126,40 @@ def search_stacked(params: FilterParams, geo_batch: epipolar.EpiGeo,
                                 FAIL_MAX_COST, SUCCESS)))
     return SearchResult(status=status.int(), u_cmp=m.u_cmp,
                         residual=m.residual)
+
+
+def search(params: FilterParams, geo: epipolar.EpiGeo,
+           rescale_factor: torch.Tensor, img_ref: torch.Tensor,
+           img_cmp: torch.Tensor, u_ref: torch.Tensor,
+           u_ref_padded: torch.Tensor, u_start: torch.Tensor,
+           u_end: torch.Tensor, n_steps: int) -> SearchResult:
+    """search_stacked for features that share one reference image (H, W)
+    and one geometry (reference inverse_depth_filter.cc:184-266). u_ref
+    (unpadded) gives the reference epiline direction; u_start / u_end are
+    in padded img_cmp coordinates."""
+    epi_ref = epipolar.reference_epiline(geo, u_ref)  # (N, 2)
+    ppos = _patch_positions(epi_ref, rescale_factor, u_ref_padded)
+    ref_patch = interp.bilinear(img_ref, ppos[..., 0], ppos[..., 1])
+    return _gate_and_match(params, ref_patch, img_cmp, u_start, u_end,
+                           rescale_factor, n_steps)
+
+
+def search_stacked(params: FilterParams, geo_batch: epipolar.EpiGeo,
+                   rescale_factor: torch.Tensor, imgs_ref: torch.Tensor,
+                   ref_frame_idx: torch.Tensor, img_cmp: torch.Tensor,
+                   u_ref: torch.Tensor, u_ref_padded: torch.Tensor,
+                   u_start: torch.Tensor, u_end: torch.Tensor,
+                   n_steps: int) -> SearchResult:
+    """Sample each feature's 5-tap reference patch from its own anchor
+    poseframe in the stack (F, H, W), gate on the patch gradient and run
+    the line-stereo match (reference :184-266)."""
+    epi_ref = epipolar.reference_epiline(geo_batch, u_ref)  # (N, 2)
+    ppos = _patch_positions(epi_ref, rescale_factor, u_ref_padded)
+    fidx = ref_frame_idx[:, None].expand(-1, 5)
+    ref_patch = interp.bilinear_stack(imgs_ref, fidx, ppos[..., 0],
+                                      ppos[..., 1])
+    return _gate_and_match(params, ref_patch, img_cmp, u_start, u_end,
+                           rescale_factor, n_steps)
 
 
 def update(mu_pred: torch.Tensor, var_pred: torch.Tensor,

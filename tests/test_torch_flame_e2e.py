@@ -132,15 +132,15 @@ def test_mesh_and_stats(runs):
 
 
 def test_unported_paths_raise():
-    """Automatic poseframes are the path left; the throughput path (async
-    topology, batching, comparison-poseframe scoring) and bundle
-    adjustment construct, and BA rejects an odd feature_capacity and more
-    than 128 poseframe slots as the JAX package does."""
+    """Every single-card path constructs: automatic poseframes, the
+    throughput path (async topology, batching, comparison-poseframe
+    scoring) and bundle adjustment; BA rejects an odd feature_capacity
+    and more than 128 poseframe slots as the JAX package does."""
     K, Kinv = _K()
-    with pytest.raises(NotImplementedError):
-        flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
-                              flame_tpu_torch.Params(auto_poseframe=True),
-                              device="cpu")
+    fl = flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
+                               flame_tpu_torch.Params(auto_poseframe=True),
+                               device="cpu")
+    assert fl.params.auto_poseframe and fl._curr_pf_pose_np is None
     flame_tpu_torch.Flame(W, H, np.array(K), np.array(Kinv),
                           flame_tpu_torch.Params(
                               solver=flame_tpu_torch.SolverParams(
@@ -232,7 +232,10 @@ def test_frame_insert_rejects_bad_slot():
 def test_port_imports_no_jax():
     code = ("import sys, flame_tpu_torch, flame_tpu_torch.convert, "
             "flame_tpu_torch.optimize.smoother_kernel, "
-            "flame_tpu_torch.ops.raster_kernel; "
+            "flame_tpu_torch.ops.raster_kernel, flame_tpu_torch.ops.pyramid, "
+            "flame_tpu_torch.utils.checkpoint, "
+            "flame_tpu_torch.utils.load_tracker, "
+            "flame_tpu_torch.run_synthetic; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('flame_tpu.') or m == 'flame_tpu' "
             "for m in sys.modules), 'flame_tpu imported'")
