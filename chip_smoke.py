@@ -79,6 +79,26 @@ Phases (any failure raises and the script exits non-zero):
      poses), with the save and load times; the card's memory through
      utils.load_tracker; run_synthetic for 10 frames into
      chiprun_out/run_synthetic (median error within phase 6's bound).
+ 11. the multi-chip layer on one card: (a) parallel.sharding.sharded_smooth
+     on phase 3's VGA graph, 40 iterations, at 1, 2, 4 and 8 partitions
+     against nltgv2.smooth(mode="stacked") and K1's result (max |dx| <=
+     1e-5), with card ms and the psum traffic model; (b)
+     sharded_update_step on make_mesh(4) at bench_params() for "edge",
+     "halo" and "pallas_halo" on a Flame's state after 8 frames of phase
+     6's scene: tracking bit-equal to the unsharded track_project_sync,
+     K3 launched once in "pallas_halo" only, "pallas_halo" against
+     "halo" within phase 5b's tolerance and "edge" against the stacked
+     smoother within 1e-5; (c) distributed_ba.solve_window_sharded on
+     make_mesh(4) at phase 5c's windows against the single solve as a
+     CUDA graph (rtol 1e-4), eager and graphed ms; (d) ShardedFlame with
+     BA on make_mesh(4) on phase 9's 640x480 noisy sequence (48 frames,
+     run inside phase 9's directory), smoother "vertex" and
+     "pallas_halo": ATE below 0.8x phase 9's noisy run without BA,
+     coverage > 0.35, every solve sharded, K1 or K3 and K2 once per
+     post-Delaunay step; (e) multihost.initialize with one process over
+     NCCL: sharded_smooth and solve_window_sharded on global_mesh()
+     bit-equal to their one-partition results under
+     torch.use_deterministic_algorithms.
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON summary (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -954,12 +974,14 @@ def vga_params(do_ba):
     return run_dataset.make_params(do_ba, VGA_FX)
 
 
-def dataset_run(root, n_frames, params, K, poses, poseframe_every):
+def dataset_run(root, n_frames, params, K, poses, poseframe_every,
+                mesh=None):
     """load_tum + run_sequence on the card, substituting poses (the noisy
-    track) when given. Records each update's host wall time and each
-    staged BA solve's time between CUDA events (read after the run) and
-    host staging time; nothing waits for the card inside the run, so the
-    async topology and BA keep the schedule they have without the
+    track) when given; through ShardedFlame on mesh when given. Records
+    each update's host wall time and each BA solve's time between CUDA
+    events (read after the run) and host time; nothing waits for the card
+    inside the run apart from the sharded solves, which apply at once, so
+    the async topology and BA keep the schedule they have without the
     script."""
     import flame_tpu_torch
     from flame_tpu_torch.geometry import camera
@@ -973,7 +995,11 @@ def dataset_run(root, n_frames, params, K, poses, poseframe_every):
             fr.t = np.asarray(t, np.float32)
     H_, W_ = frames[0].load_image().shape
     Kt = torch.as_tensor(K, dtype=torch.float32)
-    fl = flame_tpu_torch.Flame(W_, H_, Kt, camera.inv_k(Kt), params)
+    if mesh is None:
+        fl = flame_tpu_torch.Flame(W_, H_, Kt, camera.inv_k(Kt), params)
+    else:
+        from flame_tpu_torch.parallel.orchestrator import ShardedFlame
+        fl = ShardedFlame(W_, H_, Kt, camera.inv_k(Kt), params, mesh=mesh)
     frame_ms, staged = [], []
     update = fl.update
 
@@ -986,14 +1012,18 @@ def dataset_run(root, n_frames, params, K, poses, poseframe_every):
     if fl._ba is not None:
         stage = fl._ba._stage_solve
 
+        def solves(flame):
+            return flame.stats.stats("ba_single_solves") \
+                + flame.stats.stats("ba_sharded_solves")
+
         def timed_stage(flame):
-            n0 = flame.stats.stats("ba_single_solves")
+            n0 = solves(flame)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             t0 = time.perf_counter()
             ev[0].record()
             stage(flame)
             ev[1].record()
-            if flame.stats.stats("ba_single_solves") > n0:
+            if solves(flame) > n0:
                 staged.append((ev, 1000 * (time.perf_counter() - t0)))
         fl._ba._stage_solve = timed_stage
     out = datasets.run_sequence(fl, frames, poseframe_every=poseframe_every)
@@ -1054,7 +1084,7 @@ def check_ba_graph(smi):
 
 
 def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
-                 specs, gate_err=True):
+                 specs, gate_err=True, extra=None):
     """mini-TUM generated with 15 mm / 0.3 deg pose noise, run once per
     spec (name, noisy, params) on the true or the noisy poses; the specs
     are "true", "noisy" and "noisy_ba", the last with BA. Gates: the final
@@ -1062,7 +1092,10 @@ def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
     error < 0.04 (tests/test_dataset_accuracy.py; the error only with
     gate_err, else printed beside the JAX package's VGA_JAX_MAP_ERR);
     "noisy_ba" cuts the ATE of "noisy" below 0.8x and applied at least one
-    solve; K1 and K2 launch once per post-Delaunay step in every run."""
+    solve; K1 and K2 launch once per post-Delaunay step in every run.
+    extra(root, meta, runs), when given, runs inside the same temporary
+    directory after the specs; its result is returned beside the launch
+    counts."""
     from flame_tpu_torch import _kernels
     from flame_tpu_torch.io import synthetic
     from flame_tpu_torch.utils import evaluation
@@ -1094,6 +1127,7 @@ def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
                 n_post=n_post, ate=pf_ate(fl, meta["gt"]),
                 err=evaluation.depth_error_stats(fl.get_inverse_depth_map(),
                                                  gt_idm))
+        more = extra(root, meta, runs) if extra is not None else None
     print(f"{label}: generated in {gen_s:.2f} s")
     skip = 4  # the first updates include one-time allocations
     for name, r in runs.items():
@@ -1131,7 +1165,7 @@ def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
             and ratio < 0.8
             and ba["fl"].stats.stats("ba_solves_applied") >= 1):
         raise AssertionError(f"{label}: dataset gates failed")
-    return launches
+    return launches if extra is None else (launches, more)
 
 
 # Phase 10: the API residue.
@@ -1387,6 +1421,355 @@ def api_residue(smi):
     return [sync, host, checkpoint_path(smi), support_path(smi)]
 
 
+# Phase 11: the multi-chip layer on one card.
+SHARD_PARTS = (1, 2, 4, 8)
+SHARD_ATOL = 1e-5  # tests/test_sharding.py's tolerance for the edge smoother
+SHARD_FIELDS = ("x", "w1", "w2", "x_bar", "w1_bar", "w2_bar", "q1", "q2",
+                "q3")
+SHARDED_BA_FRAMES = 48  # phase 9's 640x480 sequence, uncut
+
+
+def _max_diff(a, b, fields=SHARD_FIELDS):
+    """{field: max |a - b|} over the graph fields."""
+    return {k: (getattr(a, k) - getattr(b, k)).abs().max().item()
+            for k in fields}
+
+
+def check_sharded_smooth(smi, g, n_iters=40):
+    """11a: sharded_smooth on phase 3's graph at SHARD_PARTS partitions
+    against nltgv2.smooth(mode="stacked") and K1's result; card ms per
+    call; the psum traffic model. Returns the one-partition result."""
+    from flame_tpu_torch import RegularizerParams
+    from flame_tpu_torch.optimize import nltgv2, smoother_kernel
+    from flame_tpu_torch.parallel import sharding
+    p = RegularizerParams()
+    V, E = g.x.shape[0], g.q1.shape[0]
+    stacked = nltgv2.smooth(p, g, n_iters, mode="stacked")
+    k1 = smoother_kernel.smooth(p, g, n_iters)
+    outs, ms = {}, {}
+    for n in SHARD_PARTS:
+        mesh = sharding.make_mesh(n, g.x.device)
+        outs[n] = sharding.sharded_smooth(p, g, n_iters, mesh)
+        ms[n] = _device_ms(lambda: sharding.sharded_smooth(p, g, n_iters,
+                                                           mesh), 5)
+    stacked_ms = _device_ms(lambda: nltgv2.smooth(p, g, n_iters,
+                                                  mode="stacked"), 5)
+    d_stacked = {n: _max_diff(o, stacked) for n, o in outs.items()}
+    d_k1 = {n: _max_diff(o, k1, ("x",))["x"] for n, o in outs.items()}
+    print(f"sharded_smooth V={V} E={E} iters={n_iters}: max|dx| against "
+          "nltgv2.smooth(stacked) "
+          + ", ".join(f"n={n} {d['x']:.3g}" for n, d in d_stacked.items())
+          + f" (gate {SHARD_ATOL}); all fields "
+          + ", ".join(f"n={n} {max(d.values()):.3g}"
+                      for n, d in d_stacked.items())
+          + "; max|dx| against K1 "
+          + ", ".join(f"n={n} {d:.3g}" for n, d in d_k1.items())
+          + f" (gate {SHARD_ATOL})")
+    print(f"sharded_smooth ms per call on the card ({smi}): "
+          + ", ".join(f"n={n} {ms[n]:.3f}" for n in SHARD_PARTS)
+          + f"; nltgv2.smooth(stacked) {stacked_ms:.3f}; psum traffic "
+          + ", ".join(
+              f"n={n} {sharding.psum_traffic_model(V, n, n_iters)['bytes_per_device_total']} B"
+              for n in SHARD_PARTS)
+          + " per partition (a sum over partitions of one card moves none "
+          "between cards)")
+    bad = [n for n in SHARD_PARTS
+           if d_stacked[n]["x"] > SHARD_ATOL or d_k1[n] > SHARD_ATOL]
+    if bad:
+        raise AssertionError(f"sharded_smooth departs at n={bad}")
+    return outs[1]
+
+
+def tracked_state(dev, n_frames=8):
+    """A Flame (bench_params) after n_frames of phase 6's scene, the next
+    frame, and the RCM order and ranks of its graph."""
+    import flame_tpu_torch
+    from flame_tpu_torch.core import frame as frame_mod
+    from flame_tpu_torch.optimize import smoother_kernel
+    params = bench_params()
+    K, Kinv, frames = scene(n_frames + 1)
+    fl = flame_tpu_torch.Flame(W, H, K, Kinv, params, device=dev)
+    for i in range(n_frames):
+        fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+    q, t = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in pose(n_frames))
+    fnew = frame_mod.create(n_frames, q, t,
+                            torch.as_tensor(frames[n_frames], device=dev),
+                            params.pad)
+    g = fl._graph
+    V, E = g.x.shape[0], g.q1.shape[0]
+    n_e = int(g.edge_mask.sum())
+    edges = g.edges[:n_e].cpu().numpy()
+    pos = g.pos.cpu().numpy()
+    d = pos[edges[:, 0]] - pos[edges[:, 1]]
+    perm = smoother_kernel.rcm_order(edges, n_e, V, g.vtx_mask.cpu().numpy())
+    inv = np.empty(V, np.int32)
+    inv[perm] = np.arange(V, dtype=np.int32)
+    ranks = smoother_kernel.perm_edge_ranks(
+        edges, n_e, inv, E, params.solver.max_vertex_degree,
+        params.solver.pallas_reach, tie=np.sqrt((d * d).sum(1)))
+    rcm = tuple(torch.as_tensor(a.astype(np.int64), device=dev)
+                for a in (perm, inv, ranks))
+    args = (fl.K, fl.Kinv, fl._stack, fl._feats, fnew, fl._curr_pf_slot, g)
+    return params, args, rcm
+
+
+def check_sharded_step(smi, dev):
+    """11b: sharded_update_step on make_mesh(MESH_PARTS) for the three
+    smoothers against the unsharded tracking (bit for bit) and each
+    other; K3 once in "pallas_halo" only. Returns the launch counts."""
+    import dataclasses
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.core import pipeline
+    from flame_tpu_torch.optimize import nltgv2
+    from flame_tpu_torch.parallel import sharding
+    params, args, rcm = tracked_state(dev)
+    mesh = sharding.make_mesh(MESH_PARTS, dev)
+    ufe, ucu, umem, ust, _ = pipeline.track_project_sync(params, *args[:6])
+    want = ([getattr(ufe, f.name) for f in dataclasses.fields(ufe)]
+            + [getattr(ucu, f.name) for f in dataclasses.fields(ucu)]
+            + [umem, ust])
+    n_iters = params.solver.n_iters_per_frame
+    stacked = nltgv2.smooth(params.rparams, args[6], n_iters,
+                            mode="stacked")
+    graphs, ms, runs = {}, {}, []
+    for sm in ("edge", "halo", "pallas_halo"):
+        step = sharding.sharded_update_step(params, mesh, sm)
+        extra = rcm if sm != "edge" else ()
+        _kernels.reset_launches()
+        fe, cu, mem, g2, st = step(*args, *extra)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        runs.append(launches)
+        got = ([getattr(fe, f.name) for f in dataclasses.fields(fe)]
+               + [getattr(cu, f.name) for f in dataclasses.fields(cu)]
+               + [mem, st])
+        diff = [i for i, (a, b) in enumerate(zip(got, want))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+        if diff:
+            raise AssertionError(f"sharded step {sm}: tracking outputs "
+                                 f"{diff} differ from the unsharded step")
+        k3 = 1 if sm == "pallas_halo" else 0
+        if launches["halo_smoother"] != k3 or launches["nltgv2_smoother"]:
+            raise AssertionError(f"sharded step {sm}: launches {launches}")
+        graphs[sm] = g2
+        ms[sm] = _cuda_ms(lambda: step(*args, *extra), 3)
+    d_edge = _max_diff(graphs["edge"], stacked)
+    d_halo = _max_diff(graphs["pallas_halo"], graphs["halo"])
+    print(f"sharded_update_step ({MESH_PARTS} partitions, 640x480, "
+          f"{params.feature_capacity} features, {int(umem.sum())} members, "
+          f"{int(args[6].edge_mask.sum())} edges): tracking bit-equal to the "
+          f"unsharded step for edge/halo/pallas_halo; K3 launches "
+          f"{[r['halo_smoother'] for r in runs]}; edge vs "
+          f"nltgv2.smooth(stacked) max|dx| {d_edge['x']:.3g} (gate "
+          f"{SHARD_ATOL}; all fields {max(d_edge.values()):.3g}); "
+          f"pallas_halo vs halo max|d| {max(d_halo.values()):.3g} (rtol "
+          f"{K1_TOL['rtol']}, atol {K1_TOL['atol']})")
+    print(f"sharded_update_step ms per step (host wall, CUDA events back "
+          f"to back) on {smi}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    if d_edge["x"] > SHARD_ATOL:
+        raise AssertionError("sharded step edge departs from the stacked "
+                             "smoother")
+    for k in SHARD_FIELDS:
+        torch.testing.assert_close(getattr(graphs["pallas_halo"], k),
+                                   getattr(graphs["halo"], k), **K1_TOL,
+                                   msg=f"sharded step pallas_halo vs halo {k}")
+    return runs
+
+
+def ba_windows(dev, P):
+    """check_ba_graph's well-posed window of P poses (L=1024, M=4096) as a
+    BAProblem on dev, with K and Kinv."""
+    from flame_tpu_torch import BAParams
+    from flame_tpu_torch.ba import window
+    p = BAParams()
+    L, M = p.max_landmarks, p.max_obs
+    Kn = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]])
+    buf = torch.as_tensor(window.well_posed_window(P, L, M, Kn, P, (40, 440)),
+                          device=dev)
+    problem, _ = window._decode_packed(buf, P, L, M)
+    K = torch.tensor(Kn, dtype=torch.float32, device=dev)
+    return p, K, torch.linalg.inv(K), problem
+
+
+def check_sharded_ba(smi, dev):
+    """11c: solve_window_sharded on make_mesh(MESH_PARTS) against the
+    single solve captured as a CUDA graph, rtol 1e-4 (phase 5c's); eager
+    and graphed times."""
+    from flame_tpu_torch.ba import schur, window
+    from flame_tpu_torch.parallel import distributed_ba, sharding
+    mesh = sharding.make_mesh(MESH_PARTS, dev)
+    for P in (3, 8):
+        p, K, Kinv, problem = ba_windows(dev, P)
+
+        def single(*flat):
+            return window._flat_result(*schur.solve_window(
+                p, flat[0], flat[1], problem._replace(q=flat[2], t=flat[3]),
+                n_fixed=2))
+        graphed = window._GraphedSolve(single, K, Kinv, problem.q, problem.t)
+        ref = graphed(K, Kinv, problem.q, problem.t).clone()
+
+        def sharded():
+            return distributed_ba.solve_window_sharded(p, K, Kinv, problem,
+                                                       mesh)
+        t0 = time.perf_counter()
+        out = window._flat_result(*sharded())
+        torch.cuda.synchronize()
+        first_ms = 1000 * (time.perf_counter() - t0)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5,
+                                   msg=f"sharded BA solve, {P} poses")
+        err = (out - ref).abs().max().item()
+        mprob, sw = distributed_ba._materialize(problem, mesh.size, None)
+        eager_ms = _cuda_ms(lambda: distributed_ba._solve(
+            p, 2, mesh, K, Kinv, mprob, sw), 3)
+        graph_ms = _cuda_ms(sharded, 10)
+        card_ms = _device_ms(sharded, 10)
+        single_ms = _device_ms(lambda: graphed(K, Kinv, problem.q,
+                                               problem.t), 10)
+        print(f"solve_window_sharded, {P} poses, L={problem.lm_idepth.shape[0]}"
+              f", M={problem.obs.u_ref.shape[0]}, {MESH_PARTS} partitions: "
+              f"max|sharded - single graphed| {err:.3g} (rtol 1e-4); eager "
+              f"{eager_ms:.3f} ms, graphed {graph_ms:.3f} ms back to back, "
+              f"{card_ms:.3f} ms on the card (the single graphed solve "
+              f"{single_ms:.3f}); first call with capture {first_ms:.1f} ms; "
+              f"on {smi}")
+
+
+def sharded_ba_runs(root, meta, noisy_ate):
+    """11d's runs inside phase 9's 640x480 directory: ShardedFlame with
+    BA on make_mesh(MESH_PARTS), noisy poses, smoother "vertex" and
+    "pallas_halo". Gated and printed by check_sharded_flame_ba."""
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.io import synthetic
+    from flame_tpu_torch.parallel import sharding
+    from flame_tpu_torch.utils import evaluation
+    out = {"noisy_ate": noisy_ate}
+    _, gt_idm = synthetic.render_frame(
+        meta["K"], *synthetic.trajectory(SHARDED_BA_FRAMES - 1), 640, 480)
+    for sm in ("vertex", "pallas_halo"):
+        _kernels.reset_launches()
+        fl, _, frame_ms, solve_ms = dataset_run(
+            root, SHARDED_BA_FRAMES, with_smoother(vga_params(True), sm),
+            meta["K"], meta["noisy"], 2,
+            mesh=sharding.make_mesh(MESH_PARTS))
+        torch.cuda.synchronize()
+        out[sm] = dict(
+            fl=fl, frame_ms=frame_ms, solve_ms=solve_ms,
+            launches=dict(_kernels.LAUNCHES),
+            n_post=len(fl.stats.device_times_ms().get("sync_graph", [])),
+            ate=pf_ate(fl, meta["gt"]),
+            err=evaluation.depth_error_stats(fl.get_inverse_depth_map(),
+                                             gt_idm))
+    return out
+
+
+def check_sharded_flame_ba(smi, res):
+    """11d: the gates and numbers of sharded_ba_runs. Returns the runs'
+    launch counts."""
+    skip = 4
+    launches = []
+    for sm in ("vertex", "pallas_halo"):
+        r = res[sm]
+        st = r["fl"].stats
+        got, n_post = r["launches"], r["n_post"]
+        k = "nltgv2_smoother" if sm == "vertex" else "halo_smoother"
+        other = "halo_smoother" if sm == "vertex" else "nltgv2_smoother"
+        ratio = r["ate"] / res["noisy_ate"]
+        solve = (np.median(np.asarray(r["solve_ms"]), axis=0)
+                 if r["solve_ms"] else (float("nan"),) * 2)
+        print(f"sharded BA ({sm}, {MESH_PARTS} partitions) mini-TUM 640x480 "
+              f"noisy, {SHARDED_BA_FRAMES} frames: coverage "
+              f"{r['err']['coverage']:.4f} (> 0.35), median relative error "
+              f"{r['err']['median_rel']:.5f}, ATE {1000 * r['ate']:.3f} mm, "
+              f"{ratio:.4f} of phase 9's noisy run without BA (< 0.8); "
+              f"sharded solves {int(st.stats('ba_sharded_solves'))}, single "
+              f"{int(st.stats('ba_single_solves'))}, applied "
+              f"{int(st.stats('ba_solves_applied'))}; {n_post} post-Delaunay "
+              f"steps, launches {got}")
+        print(f"sharded BA ({sm}): median update "
+              f"{np.median(r['frame_ms'][skip:]):.3f} ms (host wall, updates "
+              f"{skip + 1}-{len(r['frame_ms'])}), median sharded solve "
+              f"{solve[0]:.3f} ms between CUDA events, {solve[1]:.3f} ms host "
+              f"(solve and apply, synchronous; {len(r['solve_ms'])} solves) "
+              f"on {smi}")
+        if not (r["err"]["coverage"] > 0.35 and ratio < 0.8
+                and st.stats("ba_sharded_solves") >= 1
+                and st.stats("ba_single_solves") == 0 and n_post >= 1
+                and got[k] == n_post and got[other] == 0
+                and got["raster_mesh"] == n_post):
+            raise AssertionError(f"sharded BA ({sm}): gates failed")
+        launches.append(got)
+    return launches
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_process_group(smi, g, n_iters=40):
+    """11e: one process over NCCL: sharded_smooth and solve_window_sharded
+    on global_mesh() against their one-partition results, bit for bit,
+    both under torch.use_deterministic_algorithms (index_add_'s atomics
+    round in another order from run to run otherwise)."""
+    import torch.distributed as dist
+    from flame_tpu_torch import RegularizerParams
+    from flame_tpu_torch.parallel import distributed_ba, multihost, sharding
+    p = RegularizerParams()
+    one = sharding.make_mesh(1, g.x.device)
+    bp, K, Kinv, problem = ba_windows(g.x.device, 8)
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    init_s = time.perf_counter() - t0
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = multihost.global_mesh()
+        backend = "nccl" if g.x.is_cuda else "gloo"
+        if not (mesh.size == 1 and dist.get_backend() == backend
+                and multihost.is_coordinator()):
+            raise AssertionError(f"global mesh {mesh}")
+        a = sharding.sharded_smooth(p, g, n_iters, one)
+        b = sharding.sharded_smooth(p, g, n_iters, mesh)
+        ma, sa = distributed_ba._materialize(problem, 1, None)
+        ba_one = distributed_ba._solve(bp, 2, one, K, Kinv, ma, sa)
+        ba_group = distributed_ba.solve_window_sharded(bp, K, Kinv, problem,
+                                                       mesh)
+        torch.cuda.synchronize()
+        smooth_eq = all(torch.equal(getattr(a, k), getattr(b, k))
+                        for k in SHARD_FIELDS)
+        ba_eq = all(torch.equal(x, y) for x, y in zip(ba_one, ba_group))
+        group_ms = _cuda_ms(lambda: sharding.sharded_smooth(p, g, n_iters,
+                                                            mesh), 3)
+        ba_ms = _cuda_ms(lambda: distributed_ba.solve_window_sharded(
+            bp, K, Kinv, problem, mesh), 3)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        dist.destroy_process_group()
+    print(f"process group ({backend}, 1 process, init {init_s:.2f} s): "
+          f"sharded_smooth bit-equal to one partition {smooth_eq}, "
+          f"solve_window_sharded (8 poses) bit-equal {ba_eq}; eager under "
+          f"deterministic algorithms {group_ms:.3f} ms and {ba_ms:.3f} ms "
+          f"per call on {smi}")
+    if not (smooth_eq and ba_eq):
+        raise AssertionError("the process-group mesh departs from one "
+                             "partition")
+
+
+def multichip_layer(smi, g, sharded_ba):
+    """Phase 11; returns the launch counts of its main-path runs."""
+    dev = g.x.device
+    check_sharded_smooth(smi, g)
+    runs = check_sharded_step(smi, dev)
+    check_sharded_ba(smi, dev)
+    runs += check_sharded_flame_ba(smi, sharded_ba)
+    check_process_group(smi, g)
+    return runs
+
+
 def main():
     # cuBLAS picks its workspace per stream unless told; a fixed one keeps
     # its matmuls reproducible under torch.use_deterministic_algorithms
@@ -1413,11 +1796,16 @@ def main():
                      210.0, 2, [("true", False, mini_tum_params(False)),
                                 ("noisy", True, mini_tum_params(False)),
                                 ("noisy_ba", True, mini_tum_params(True))]),
-        dataset_path(smi, "dataset path mini-TUM 640x480", 48, 640, 480,
-                     VGA_FX, 2, [("true", False, vga_params(True)),
-                                 ("noisy", True, vga_params(False)),
-                                 ("noisy_ba", True, vga_params(True))],
-                     gate_err=False)] + api_residue(smi)
+    ]
+    vga, sharded_ba = dataset_path(
+        smi, "dataset path mini-TUM 640x480", 48, 640, 480, VGA_FX, 2,
+        [("true", False, vga_params(True)),
+         ("noisy", True, vga_params(False)),
+         ("noisy_ba", True, vga_params(True))], gate_err=False,
+        extra=lambda root, meta, r: sharded_ba_runs(root, meta,
+                                                    r["noisy"]["ate"]))
+    runs += [vga] + api_residue(smi)
+    runs += multichip_layer(smi, g, sharded_ba)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",

@@ -1,8 +1,6 @@
 """Windowed BA bookkeeping and Flame integration.
 
-Port of flame_tpu/ba/window.py (its single-device path; the
-observation-sharded solve of flame_tpu/parallel/distributed_ba.py is not
-ported, and ShardedFlame rejects do_ba).
+Port of flame_tpu/ba/window.py.
 
 Tracking's per-poseframe matches ride the packed transfer
 (pipeline.pack_ba_outputs) to the host, where split_packed decodes them
@@ -18,6 +16,11 @@ Poses and refined idepths apply one or more steps later: one pose
 scatter, and one idepth scatter guarded by identity (the slot must still
 hold the same feat_id mod 2^24 and the same anchor poseframe slot),
 which makes the lag safe against slot recycling and re-anchoring.
+
+Under a mesh (ShardedFlame) every solve is decoded, re-matched and
+weighted the same way, solved with the observation-sharded assembly
+(parallel/distributed_ba.py) and applied at once, as in the JAX package
+(flame_tpu/ba/window.py:560-597).
 """
 
 import gc
@@ -275,58 +278,76 @@ def well_posed_window(P: int, L: int, M: int, K: np.ndarray, seed: int,
     return _pack_problem(problem, np.arange(P, dtype=np.int32))
 
 
-def _solve_packed(p: BAParams, K, Kinv, buf: torch.Tensor, img_pad, pad: int,
-                  n_fixed: int, P: int, L: int, M: int) -> torch.Tensor:
-    """Decode the problem upload (_pack_problem layout), optionally
-    re-match in 2-D and weight, run the Schur Gauss-Newton window solve,
-    and return one flat float32 result [q 4P | t 3P | lm L | cost]."""
+def _decode_packed(buf: torch.Tensor, P: int, L: int, M: int):
+    """The problem upload (_pack_problem layout) as (BAProblem, slot_w)
+    on buf's device."""
     sizes = (4 * P, 3 * P, 4 * P, 3 * P, L, L, M, M, M, 2 * M, 2 * M, M, P)
     (q, t, prior_q, prior_t, lm, lm_valid, a_idx, o_idx, l_idx, u_ref,
      u_obs, valid, slot_w) = torch.split(buf, sizes)
 
     def f32(a, *shape):
         return a.view(torch.float32).reshape(*shape)
-    q, t = f32(q, P, 4), f32(t, P, 3)
-    a_idx, o_idx, l_idx = a_idx.long(), o_idx.long(), l_idx.long()
-    u_ref = f32(u_ref, M, 2)
-    lm = f32(lm, L)
-    valid = valid > 0
-    slot_w = slot_w.long()
-    u_obs = f32(u_obs, M, 2)
+    problem = schur.BAProblem(
+        q=f32(q, P, 4), t=f32(t, P, 3), lm_idepth=f32(lm, L),
+        lm_valid=lm_valid > 0,
+        obs=resid.BAObservations(anchor_idx=a_idx.long(),
+                                 obs_idx=o_idx.long(), lm_idx=l_idx.long(),
+                                 u_ref=f32(u_ref, M, 2),
+                                 u_obs=f32(u_obs, M, 2), valid=valid > 0),
+        prior_q=f32(prior_q, P, 4), prior_t=f32(prior_t, P, 3))
+    return problem, slot_w.long()
+
+
+def _rematch_and_weigh(p: BAParams, K, Kinv, problem: schur.BAProblem,
+                       slot_w: torch.Tensor, img_pad, pad: int):
+    """Optionally re-match the observations in 2-D and weight them by the
+    anchor's structure tensor: returns (problem, sqrtW or None)."""
+    obs = problem.obs
     if p.do_rematch:
         u_obs, _ = rematch.rematch_observations(
-            K, Kinv, img_pad, pad, q, t, a_idx, o_idx, slot_w[a_idx],
-            slot_w[o_idx], u_ref, u_obs, l_idx, lm, valid,
+            K, Kinv, img_pad, pad, problem.q, problem.t, obs.anchor_idx,
+            obs.obs_idx, slot_w[obs.anchor_idx], slot_w[obs.obs_idx],
+            obs.u_ref, obs.u_obs, obs.lm_idx, problem.lm_idepth, obs.valid,
             radius=p.rematch_radius, max_cost=p.rematch_max_cost,
             min_eig=p.rematch_min_eig)
+        problem = problem._replace(obs=obs._replace(u_obs=u_obs))
     sqrtW = None
     if p.aniso_weights:
-        sqrtW = rematch.observation_weights(img_pad, pad, slot_w[a_idx],
-                                            u_ref)
-    problem = schur.BAProblem(
-        q=q, t=t, lm_idepth=lm, lm_valid=lm_valid > 0,
-        obs=resid.BAObservations(anchor_idx=a_idx, obs_idx=o_idx,
-                                 lm_idx=l_idx, u_ref=u_ref, u_obs=u_obs,
-                                 valid=valid),
-        prior_q=f32(prior_q, P, 4), prior_t=f32(prior_t, P, 3))
-    qf, tf, lmf, cost = schur.solve_window(p, K, Kinv, problem,
-                                           n_fixed=n_fixed, sqrtW=sqrtW)
-    return torch.cat([qf.reshape(-1), tf.reshape(-1), lmf, cost.reshape(1)])
+        sqrtW = rematch.observation_weights(img_pad, pad,
+                                            slot_w[obs.anchor_idx],
+                                            obs.u_ref)
+    return problem, sqrtW
+
+
+def _solve_packed(p: BAParams, K, Kinv, buf: torch.Tensor, img_pad, pad: int,
+                  n_fixed: int, P: int, L: int, M: int) -> torch.Tensor:
+    """Decode the problem upload (_pack_problem layout), optionally
+    re-match in 2-D and weight, run the Schur Gauss-Newton window solve,
+    and return one flat float32 result [q 4P | t 3P | lm L | cost]."""
+    problem, slot_w = _decode_packed(buf, P, L, M)
+    problem, sqrtW = _rematch_and_weigh(p, K, Kinv, problem, slot_w, img_pad,
+                                        pad)
+    return _flat_result(*schur.solve_window(p, K, Kinv, problem,
+                                            n_fixed=n_fixed, sqrtW=sqrtW))
+
+
+def _flat_result(q, t, lm, cost) -> torch.Tensor:
+    return torch.cat([q.reshape(-1), t.reshape(-1), lm, cost.reshape(1)])
 
 
 class _GraphedSolve:
-    """solve(buf) captured as one CUDA graph: replaying it copies buf into
-    the captured input and returns the captured output tensor, which the
+    """solve(*bufs) captured as one CUDA graph: replaying it copies bufs
+    into the captured inputs and returns the captured outputs, which the
     next replay overwrites (the stream orders the fetch of one result
     before the next replay). The warm-up run on a side stream sets up the
     allocator and the solver library before the capture."""
 
-    def __init__(self, solve, buf: torch.Tensor):
-        self.buf = buf.clone()
+    def __init__(self, solve, *bufs: torch.Tensor):
+        self.bufs = tuple(b.clone() for b in bufs)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            solve(self.buf)
+            solve(*self.bufs)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         # A garbage collection inside the capture would run the destructors
@@ -340,13 +361,14 @@ class _GraphedSolve:
         try:
             with torch.cuda.graph(self.graph,
                                   capture_error_mode="thread_local"):
-                self.out = solve(self.buf)
+                self.out = solve(*self.bufs)
         finally:
             if collecting:
                 gc.enable()
 
-    def __call__(self, buf: torch.Tensor) -> torch.Tensor:
-        self.buf.copy_(buf)
+    def __call__(self, *bufs: torch.Tensor):
+        for dst, src in zip(self.bufs, bufs):
+            dst.copy_(src)
         self.graph.replay()
         return self.out
 
@@ -379,10 +401,13 @@ class BundleAdjuster:
     solve runs as one upload and one flat result fetched without
     blocking, and results apply later under identity guards."""
 
-    def __init__(self, params: BAParams, K, Kinv):
+    def __init__(self, params: BAParams, K, Kinv, mesh=None):
         self.params = params
         self.K = K
         self.Kinv = Kinv
+        # A parallel.sharding.Mesh: every solve takes the observation-
+        # sharded path (parallel/distributed_ba.py) and applies at once.
+        self.mesh = mesh
         self.store = ObservationStore(params.obs_capacity)
         self.last_cost: Optional[float] = None
         self.last_accepted: bool = False
@@ -516,9 +541,22 @@ class BundleAdjuster:
                     # Staged poses, for the write-back gate at apply time.
                     q_in=np.array(problem.q, np.float32),
                     t_in=np.array(problem.t, np.float32))
-        fl.stats.add("ba_single_solves", 1)
         buf = torch.as_tensor(_pack_problem(problem, slot_w), device=fl.device)
         img_pad = fl._stack.img_pad
+        if self.mesh is not None:
+            # Under a mesh every solve is observation-sharded, counted, and
+            # applied synchronously, as in the JAX package.
+            from flame_tpu_torch.parallel import distributed_ba
+            fl.stats.add("ba_sharded_solves", 1)
+            prob, slots = _decode_packed(buf, P, L, M)
+            prob, sqrtW = _rematch_and_weigh(p, self.K, self.Kinv, prob,
+                                             slots, img_pad, fl.params.pad)
+            res = distributed_ba.solve_window_sharded(
+                p, self.K, self.Kinv, prob, self.mesh, n_fixed=n_fixed,
+                sqrtW=sqrtW)
+            self._apply(fl, _flat_result(*res).cpu().numpy(), meta)
+            return
+        fl.stats.add("ba_single_solves", 1)
 
         def solve(b):
             return _solve_packed(p, self.K, self.Kinv, b, img_pad,

@@ -48,7 +48,9 @@ that branch copies the caller's pose to the host.
 With do_ba, windowed bundle adjustment (ba/window.py) runs beside every
 path: the packed transfer is widened with the poseframes' matches and a
 state snapshot, and after each single or batched update BundleAdjuster
-.step applies a solve that has landed or stages a new one.
+.step applies a solve that has landed or stages a new one (under
+ShardedFlame's mesh, _ba_mesh, it solves with the observation-sharded
+assembly and applies at once).
 
 utils/checkpoint.py saves and restores the whole state.
 """
@@ -256,8 +258,9 @@ class Flame:
         # raster (device scalars, read without a sync per step).
         self._raster_union = collections.deque(maxlen=256)
         self._warned_ba_obs_drop = False
-        self._ba = (ba_window.BundleAdjuster(p.ba, self.K, self.Kinv)
-                    if p.do_ba else None)
+        self._ba = (ba_window.BundleAdjuster(
+            p.ba, self.K, self.Kinv, mesh=getattr(self, "_ba_mesh", None))
+            if p.do_ba else None)
         self.clear()
 
     def clear(self):

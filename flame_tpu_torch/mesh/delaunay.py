@@ -60,6 +60,16 @@ def _load() -> ctypes.CDLL:
         return lib
 
 
+def native_available() -> bool:
+    """Whether the Delaunay library builds and loads (triangulate raises
+    where it does not)."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def triangulate(points: np.ndarray) -> Triangulation:
     """Delaunay-triangulate (N >= 3, 2) float points."""
     pts = np.ascontiguousarray(points, dtype=np.float32)

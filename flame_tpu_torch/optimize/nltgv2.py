@@ -17,11 +17,19 @@ copy from the same operands in the same order, so the copies stay
 bit-equal and no scatter is needed. The iteration body is split out
 (iterate_plain) so that optimize/smoother_kernel.py can run the same
 prologue and write-back around its CUDA kernel.
+
+The JAX package's other formulations are here too, as plain torch: the
+field-per-field step (segment-sum or incidence-gather primal), the
+stacked loop of two row gathers and two segment sums per iteration that
+parallel/sharding.py's edge-sharded smoother splits over partitions,
+smooth(mode=...) over all three, and the incidence tables built on the
+host. The production smoother stays optimize/smoother_kernel.py (K1).
 """
 
 from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from flame_tpu_torch.params import RegularizerParams
@@ -234,6 +242,269 @@ def _smooth_vertex_centric(p: RegularizerParams, g: GraphState,
                           p.data_factor * g.data_weight, g.vtx_mask, state,
                           n_iters)
     return unslot(g, state)
+
+
+def build_incidence(edges: np.ndarray, edge_mask: np.ndarray,
+                    n_vertices: int, max_degree: int):
+    """Host-side per-vertex incident-edge table: (inc_edge (V, D) int32,
+    inc_sign (V, D) float32, +1 src, -1 dst, 0 pad). Entries past
+    max_degree are dropped (the JAX package's build_incidence)."""
+    V, D = n_vertices, max_degree
+    inc_edge = np.zeros((V, D), np.int32)
+    inc_sign = np.zeros((V, D), np.float32)
+    eidx = np.nonzero(edge_mask)[0]
+    if eidx.shape[0] == 0:
+        return inc_edge, inc_sign
+    # Sort the (vertex, edge id, sign) triples by vertex, rank them within
+    # each vertex and keep the ranks below D.
+    verts = np.concatenate([edges[eidx, 0], edges[eidx, 1]])
+    eids = np.concatenate([eidx, eidx]).astype(np.int32)
+    signs = np.concatenate([np.ones(eidx.shape[0], np.float32),
+                            -np.ones(eidx.shape[0], np.float32)])
+    order = np.argsort(verts, kind="stable")
+    vs = verts[order]
+    rank = np.arange(vs.shape[0]) - np.searchsorted(vs, vs, side="left")
+    keep = rank < D
+    inc_edge[vs[keep], rank[keep]] = eids[order][keep]
+    inc_sign[vs[keep], rank[keep]] = signs[order][keep]
+    return inc_edge, inc_sign
+
+
+def build_src_slot(inc_edge: np.ndarray, inc_sign: np.ndarray,
+                   e_capacity: int) -> np.ndarray:
+    """Host-side: each edge's flat (V * D) slot of its src incidence entry
+    (dst fallback, V * D when both were dropped), for the vertex-centric
+    smoother's dual write-back."""
+    V, D = inc_edge.shape
+    src_slot = np.full(e_capacity, V * D, np.int32)
+    flat_e = inc_edge.reshape(-1)
+    flat_s = inc_sign.reshape(-1)
+    dst = np.nonzero(flat_s < 0)[0]
+    src_slot[flat_e[dst]] = dst
+    src = np.nonzero(flat_s > 0)[0]
+    src_slot[flat_e[src]] = src
+    return src_slot
+
+
+# ---------------------------------------------------------------------------
+# The field-per-field iteration (the reference's semantics, op for op).
+# ---------------------------------------------------------------------------
+
+
+def _edge_geometry(g: GraphState):
+    ii = g.edges[:, 0]
+    jj = g.edges[:, 1]
+    return ii, jj, g.pos[ii, 0] - g.pos[jj, 0], g.pos[ii, 1] - g.pos[jj, 1]
+
+
+def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int):
+    return vals.new_zeros((n,) + vals.shape[1:]).index_add_(0, idx, vals)
+
+
+def _dual_step(p: RegularizerParams, g: GraphState) -> GraphState:
+    """Dual ascent with the unit-ball projection (reference .cc:89-114)."""
+    ii, jj, dx, dy = _edge_geometry(g)
+    K1x = g.alpha * (g.x_bar[ii] - g.x_bar[jj] - dx * g.w1_bar[ii]
+                     - dy * g.w2_bar[ii])
+    K2x = g.beta * (g.w1_bar[ii] - g.w1_bar[jj])
+    K3x = g.beta * (g.w2_bar[ii] - g.w2_bar[jj])
+    m = g.edge_mask
+    zero = torch.zeros_like(K1x)
+    return g.replace(
+        q1=torch.where(m, _unit_ball(g.q1 + p.step_q * K1x), zero),
+        q2=torch.where(m, _unit_ball(g.q2 + p.step_q * K2x), zero),
+        q3=torch.where(m, _unit_ball(g.q3 + p.step_q * K3x), zero))
+
+
+def _primal_edge_terms(p: RegularizerParams, g: GraphState):
+    """Per-edge primal-descent deltas to the source (i) and target (j)
+    vertex (reference .cc:116-142): (ii, jj, d_x_i, d_x_j, d_w1_i,
+    d_w1_j, d_w2_i, d_w2_j)."""
+    ii, jj, dx, dy = _edge_geometry(g)
+    sxa = p.step_x * g.alpha
+    sxb = p.step_x * g.beta
+    return (ii, jj, -g.q1 * sxa, g.q1 * sxa, g.q1 * sxa * dx - g.q2 * sxb,
+            g.q2 * sxb, g.q1 * sxa * dy - g.q3 * sxb, g.q3 * sxb)
+
+
+def _masked_prox(p: RegularizerParams, g: GraphState, x, w1,
+                 w2) -> GraphState:
+    x = _prox_l1(p, p.data_factor * g.data_weight, x, g.data_term)
+    m = g.vtx_mask
+    return g.replace(x=torch.where(m, x, g.x), w1=torch.where(m, w1, g.w1),
+                     w2=torch.where(m, w2, g.w2))
+
+
+def _primal_step_segment(p: RegularizerParams, g: GraphState) -> GraphState:
+    """Primal descent by segment sums over the edges."""
+    V = g.x.shape[0]
+    ii, jj, d_x_i, d_x_j, d_w1_i, d_w1_j, d_w2_i, d_w2_j = \
+        _primal_edge_terms(p, g)
+    return _masked_prox(
+        p, g,
+        g.x + _segment_sum(d_x_i, ii, V) + _segment_sum(d_x_j, jj, V),
+        g.w1 + _segment_sum(d_w1_i, ii, V) + _segment_sum(d_w1_j, jj, V),
+        g.w2 + _segment_sum(d_w2_i, ii, V) + _segment_sum(d_w2_j, jj, V))
+
+
+def _primal_step_incidence(p: RegularizerParams, g: GraphState) -> GraphState:
+    """Primal descent by gathers over the [V, D] incidence table: a
+    vertex with incident edge e of sign s takes -s q1 sxa on x and, as the
+    edge's source only, q1 sxa dx (dy) on w1 (w2), minus s q2 (q3) sxb."""
+    e = g.inc_edge
+    s = g.inc_sign
+    is_src = s > 0
+    _, _, dx_e, dy_e = _edge_geometry(g)
+    q1, q2, q3 = g.q1[e], g.q2[e], g.q3[e]
+    sxa = p.step_x * g.alpha[e]
+    sxb = p.step_x * g.beta[e]
+    zero = torch.zeros_like(q1)
+    d_x = -s * q1 * sxa
+    d_w1 = torch.where(is_src, q1 * sxa * dx_e[e], zero) - s * q2 * sxb
+    d_w2 = torch.where(is_src, q1 * sxa * dy_e[e], zero) - s * q3 * sxb
+    return _masked_prox(p, g, g.x + d_x.sum(1), g.w1 + d_w1.sum(1),
+                        g.w2 + d_w2.sum(1))
+
+
+def _extragradient_step(p: RegularizerParams, g: GraphState, x_prev,
+                        w1_prev, w2_prev) -> GraphState:
+    """Theta over-relaxation; x_bar clamped to [x_min, x_max], the w bars
+    not (reference .cc:156-174)."""
+    return g.replace(
+        x_bar=torch.clamp(g.x + p.theta * (g.x - x_prev), p.x_min, p.x_max),
+        w1_bar=g.w1 + p.theta * (g.w1 - w1_prev),
+        w2_bar=g.w2 + p.theta * (g.w2 - w2_prev))
+
+
+def step(p: RegularizerParams, g: GraphState,
+         use_incidence: bool = False) -> GraphState:
+    """One full Chambolle-Pock iteration (reference .cc:33-49); the primal
+    step by segment sums or, with use_incidence, by the incidence table."""
+    x_prev, w1_prev, w2_prev = g.x, g.w1, g.w2
+    g = _dual_step(p, g)
+    g = (_primal_step_incidence if use_incidence
+         else _primal_step_segment)(p, g)
+    return _extragradient_step(p, g, x_prev, w1_prev, w2_prev)
+
+
+# ---------------------------------------------------------------------------
+# The stacked iteration: two row gathers and two segment sums per
+# iteration, over any block of edge rows (parallel/sharding.py splits the
+# rows over partitions and sums their vertex contributions).
+# ---------------------------------------------------------------------------
+
+
+class EdgeTerms(NamedTuple):
+    """Loop-invariant per-edge quantities of a block of edge rows."""
+
+    ii: torch.Tensor  # source vertex
+    jj: torch.Tensor  # target vertex
+    dx: torch.Tensor  # pos[ii] - pos[jj]
+    dy: torch.Tensor
+    sxa: torch.Tensor  # step_x * alpha (0 on invalid edges)
+    sxb: torch.Tensor  # step_x * beta
+    qa: torch.Tensor  # step_q * alpha
+    qb: torch.Tensor  # step_q * beta
+
+
+def edge_terms(p: RegularizerParams, g: GraphState,
+               rows: slice = slice(None)) -> EdgeTerms:
+    """The EdgeTerms of g's edge rows `rows`."""
+    ii = g.edges[rows, 0]
+    jj = g.edges[rows, 1]
+    em = g.edge_mask[rows]
+    zero = torch.zeros_like(g.alpha[rows])
+    a = torch.where(em, g.alpha[rows], zero)
+    b = torch.where(em, g.beta[rows], zero)
+    return EdgeTerms(ii, jj, g.pos[ii, 0] - g.pos[jj, 0],
+                     g.pos[ii, 1] - g.pos[jj, 1], p.step_x * a, p.step_x * b,
+                     p.step_q * a, p.step_q * b)
+
+
+def edge_step(t: EdgeTerms, VB: torch.Tensor, q):
+    """One iteration's per-edge work on the stacked bars VB (V, 3) =
+    (x_bar, w1_bar, w2_bar): the dual ascent with the projection
+    (reference .cc:89-114) and the (E, 3) primal contributions to each
+    edge's source (Ci) and target (Cj) (.cc:116-142). q: (q1, q2, q3) of
+    the block's rows. Returns (new q, Ci, Cj)."""
+    gi = VB[t.ii]
+    gj = VB[t.jj]
+    K1 = (gi[:, 0] - gj[:, 0]) - t.dx * gi[:, 1] - t.dy * gi[:, 2]
+    q1 = _unit_ball(q[0] + t.qa * K1)
+    q2 = _unit_ball(q[1] + t.qb * (gi[:, 1] - gj[:, 1]))
+    q3 = _unit_ball(q[2] + t.qb * (gi[:, 2] - gj[:, 2]))
+    Ci = torch.stack([-q1 * t.sxa, q1 * t.sxa * t.dx - q2 * t.sxb,
+                      q1 * t.sxa * t.dy - q3 * t.sxb], dim=1)
+    Cj = torch.stack([q1 * t.sxa, q2 * t.sxb, q3 * t.sxb], dim=1)
+    return (q1, q2, q3), Ci, Cj
+
+
+def stacked_iterations(p: RegularizerParams, g: GraphState, t: EdgeTerms,
+                       q, n_iters: int, combine):
+    """n_iters stacked iterations over the edge rows of t, whose duals are
+    q. combine(Ci, Cj) returns the (V, 3) sums of the contributions at
+    each vertex over all of the graph's edges; the vertex update that
+    follows is the same everywhere. Returns (x, w1, w2, VB, q)."""
+    weight = p.data_factor * g.data_weight
+    x, w1, w2 = g.x, g.w1, g.w2
+    VB = torch.stack([g.x_bar, g.w1_bar, g.w2_bar], dim=1)
+    for _ in range(n_iters):
+        q, Ci, Cj = edge_step(t, VB, q)
+        x, w1, w2, *bars = vertex_step(p, x, w1, w2,
+                                       combine(Ci, Cj).unbind(1),
+                                       g.data_term, weight, g.vtx_mask)
+        VB = torch.stack(bars, dim=1)
+    return x, w1, w2, VB, q
+
+
+def stacked_result(g: GraphState, x, w1, w2, VB, q) -> GraphState:
+    """The GraphState after stacked_iterations; duals of invalid edges
+    are 0."""
+    em = g.edge_mask
+    zero = torch.zeros_like(g.q1)
+    return g.replace(x=x, w1=w1, w2=w2, x_bar=VB[:, 0], w1_bar=VB[:, 1],
+                     w2_bar=VB[:, 2], q1=torch.where(em, q[0], zero),
+                     q2=torch.where(em, q[1], zero),
+                     q3=torch.where(em, q[2], zero))
+
+
+def _smooth_stacked(p: RegularizerParams, g: GraphState,
+                    n_iters: int) -> GraphState:
+    """n_iters stacked iterations over all edges. The JAX package packs
+    the bars into (V, 8) rows for the TPU's lanes; here they are (V, 3)."""
+    V = g.x.shape[0]
+    t = edge_terms(p, g)
+
+    def combine(Ci, Cj):
+        return _segment_sum(Ci, t.ii, V).index_add_(0, t.jj, Cj)
+    return stacked_result(g, *stacked_iterations(
+        p, g, t, (g.q1, g.q2, g.q3), n_iters, combine))
+
+
+SMOOTH_MODES = ("vertex", "stacked", "step")
+
+
+def smooth(p: RegularizerParams, g: GraphState, n_iters: int,
+           use_incidence: bool = False, stacked: bool = True,
+           mode: Optional[str] = None) -> GraphState:
+    """n_iters iterations in one of the equivalent formulations: "vertex"
+    (the vertex-centric loop; needs the incidence tables and src_slot),
+    "stacked" (two row gathers and two segment sums per iteration) or
+    "step" (field per field, the primal by incidence with
+    use_incidence). mode None: "stacked" if stacked else "step". Plain
+    torch: the production smoother is smoother_kernel.smooth (K1)."""
+    if mode is None:
+        mode = "stacked" if stacked else "step"
+    if mode == "vertex":
+        return _smooth_vertex_centric(p, g, n_iters)
+    if mode == "stacked":
+        return _smooth_stacked(p, g, n_iters)
+    if mode != "step":
+        raise ValueError(f"unknown smooth mode {mode!r}; one of "
+                         f"{SMOOTH_MODES}")
+    for _ in range(n_iters):
+        g = step(p, g, use_incidence=use_incidence)
+    return g
 
 
 def smoothness_cost(p: RegularizerParams, g: GraphState) -> torch.Tensor:

@@ -146,6 +146,7 @@ def halo_smooth(p: RegularizerParams, g: nltgv2.GraphState, perm, inv_perm,
     perm / inv_perm / ranks_p come from smoother_kernel.rcm_order and
     perm_edge_ranks. V must divide into mesh.size blocks of at least
     `halo` ranks."""
+    mesh.require_one_card("halo_smooth")
     V = g.x.shape[0]
     n_dev = mesh.size
     if V % n_dev:

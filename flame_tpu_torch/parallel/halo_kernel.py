@@ -267,6 +267,7 @@ def smooth_sharded(p: RegularizerParams, g: nltgv2.GraphState, perm,
     partitions (the kernel on the card), and the write-back; the same
     GraphState contract as smoother_kernel.smooth. perm / inv_perm /
     ranks_p from smoother_kernel.rcm_order and perm_edge_ranks."""
+    mesh.require_one_card("smooth_sharded")
     V = g.x.shape[0]
     _check_blocks(_rows(V), mesh.size, reach)
     if g.x.device != mesh.device:

@@ -1,4 +1,4 @@
-"""ShardedFlame: the whole Flame pipeline with a partitioned smoother.
+"""ShardedFlame: the whole Flame pipeline over a partition mesh.
 
 Counterpart of flame_tpu/parallel/orchestrator.py. Every update() runs
 the Flame pipeline; the smoother of each post-Delaunay step is
@@ -6,12 +6,15 @@ partitioned over the mesh: smoother="pallas_halo" runs the halo kernel
 K3 (parallel/halo_kernel.py) with a thread-block cluster per partition,
 "halo" the plain partitioned smoother (parallel/halo.py). "auto" and
 "pallas" become "vertex", as in the JAX package ("pallas" with a
-warning).
+warning). With do_ba, every bundle adjustment solve takes the
+observation-sharded assembly over the mesh (parallel/distributed_ba.py)
+and applies at once, as the JAX package routes it (_ba_mesh).
 
-The port's mesh is n partitions of one card (parallel/sharding.py), so
-the pipeline state stays on that card. The JAX package's NamedSharding
-placement of the feature and graph state over the mesh belongs to a mesh
-of several chips, and comes with the multi-card transport.
+The mesh is n partitions of one card (parallel/sharding.py), so the
+pipeline state stays on that card. A mesh over a process group raises
+NotImplementedError: the JAX package's NamedSharding placement of the
+feature and graph state over several chips, and the halo strips between
+them, are the multi-card transport (ROADMAP section 1 item 6.1).
 """
 
 import dataclasses
@@ -33,18 +36,14 @@ class ShardedFlame(Flame):
                  mesh: Optional[Mesh] = None, *, device="cuda"):
         own = make_mesh(1, device)
         mesh = mesh if mesh is not None else own
+        mesh.require_one_card("ShardedFlame")
         if mesh.device != own.device:
             raise ValueError(f"ShardedFlame: mesh on {mesh.device}, "
                              f"device {own.device}")
         self.mesh = mesh
         self._sharding_mesh = mesh
+        self._ba_mesh = mesh  # BA through the observation-sharded assembly
         params = params or Params()
-        if params.do_ba:
-            raise NotImplementedError(
-                "ShardedFlame with do_ba: the JAX package solves BA here "
-                "with its observation-sharded psum assembly "
-                "(parallel/distributed_ba.py), which comes with the "
-                "multi-card transport (ROADMAP section 1 item 6.3)")
         n = mesh.size
         if params.feature_capacity % n or params.edge_capacity % n:
             raise ValueError("feature/edge capacity must divide into the "

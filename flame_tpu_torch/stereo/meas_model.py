@@ -57,3 +57,23 @@ def idepth_measurement(params: MeasModelParams, geo: epipolar.EpiGeo,
     gx = interp.bilinear(gradx_cmp, u_cmp[..., 0], u_cmp[..., 1])
     gy = interp.bilinear(grady_cmp, u_cmp[..., 0], u_cmp[..., 1])
     return _noise_model(params, geo, u_ref, u_inf, epi, disp, mu, gx, gy)
+
+
+def idepth_measurement_stacked(params: MeasModelParams,
+                               geo_batch: epipolar.EpiGeo,
+                               gradx_stack: torch.Tensor,
+                               grady_stack: torch.Tensor,
+                               frame_idx: torch.Tensor,
+                               u_ref: torch.Tensor, u_cmp: torch.Tensor):
+    """idepth_measurement with a geometry per feature (geo_batch has a
+    leading batch dim N) and the comparison gradients of each feature
+    taken from the (F, H, W) stacks at frame_idx (N,): the JAX package's
+    vmap over features, as a batch dimension. Returns (ok, mu, var)."""
+    disp, u_inf, epi = epipolar.disparity(geo_batch, u_ref, u_cmp)
+    mu = epipolar.disparity_to_idepth(geo_batch, u_ref, u_inf, epi, disp)
+    gx = interp.bilinear_stack(gradx_stack, frame_idx, u_cmp[..., 0],
+                               u_cmp[..., 1])
+    gy = interp.bilinear_stack(grady_stack, frame_idx, u_cmp[..., 0],
+                               u_cmp[..., 1])
+    return _noise_model(params, geo_batch, u_ref, u_inf, epi, disp, mu, gx,
+                        gy)

@@ -454,6 +454,45 @@ def test_filter_search_matches_jax():
                                np.asarray(a.residual)[ok], rtol=0, atol=1e-3)
 
 
+def test_idepth_measurement_stacked_matches_jax():
+    """Per-feature geometries (sideways steps with small rotations) and
+    gradients sampled from a stack of 3 frames at each feature's index:
+    the same decisions, idepths and variances within 1e-4 relative."""
+    import jax
+    from flame_tpu.stereo import meas_model as jmm
+    from flame_tpu_torch.stereo import meas_model
+    K, Kinv = _K()
+    jp = JParams()
+    tp = convert.params_from_dict(dataclasses.asdict(jp))
+    rng = np.random.default_rng(21)
+    N, F = 48, 3
+    qs = np.stack([_unit_quat(rng, 0.02) for _ in range(N)]) \
+        .astype(np.float32)
+    ts = np.stack([rng.uniform(0.05, 0.3, N), rng.normal(0, 0.01, N),
+                   rng.normal(0, 0.01, N)], 1).astype(np.float32)
+    gx = rng.normal(0, 20, (F, H, W)).astype(np.float32)
+    gy = rng.normal(0, 20, (F, H, W)).astype(np.float32)
+    fidx = rng.integers(0, F, N).astype(np.int32)
+    u_ref = rng.uniform(20, [W - 20, H - 20], (N, 2)).astype(np.float32)
+    u_cmp = (u_ref + rng.uniform([-1, -0.5], [8, 0.5], (N, 2))).astype(
+        np.float32)
+    jgeo = jax.vmap(lambda q, t: jepi.load(jnp.asarray(K), jnp.asarray(Kinv),
+                                           q, t))(jnp.asarray(qs),
+                                                  jnp.asarray(ts))
+    a = jmm.idepth_measurement_stacked(
+        jp.zparams, jgeo, jnp.asarray(gx), jnp.asarray(gy),
+        jnp.asarray(fidx), jnp.asarray(u_ref), jnp.asarray(u_cmp))
+    tgeo = epipolar.load(_t(K), _t(Kinv), _t(qs), _t(ts))
+    b = meas_model.idepth_measurement_stacked(
+        tp.zparams, tgeo, _t(gx), _t(gy), _t(fidx), _t(u_ref), _t(u_cmp))
+    ok = b[0].numpy()
+    np.testing.assert_array_equal(ok, np.asarray(a[0]))
+    assert 10 < ok.sum() < N  # both outcomes occur
+    for k in (1, 2):
+        np.testing.assert_allclose(b[k].numpy(), np.asarray(a[k]),
+                                   rtol=1e-4, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # Support: the load tracker, the Delaunay source.
 # ---------------------------------------------------------------------------
@@ -489,6 +528,11 @@ def test_delaunay_matches_jax_bit_for_bit(seed, n):
     a, b = jdel.triangulate(pts), delaunay.triangulate(pts)
     for k in ("triangles", "edges", "neighbors"):
         np.testing.assert_array_equal(getattr(b, k), np.asarray(getattr(a, k)))
+
+
+def test_native_available_matches_jax():
+    assert delaunay.native_available() is True
+    assert jdel.native_available() is True
 
 
 def _code_strings(path):

@@ -159,15 +159,66 @@ def test_unported_paths_raise():
             JFlame(W, H, K, Kinv, Params(do_ba=True, **bad))
 
 
-def test_sharded_flame_rejects_ba():
-    """The JAX package solves BA under a mesh with its observation-sharded
-    assembly, which the port does not have yet."""
+def _render_float(cam_x):
+    """__graft_entry__.dryrun_multichip's scene: float frames."""
+    vv, uu = np.mgrid[0:H, 0:W].astype(np.float64)
+    X = (uu - W / 2) * PLANE_Z / FX + cam_x
+    Y = (vv - H / 2) * PLANE_Z / FX
+    return (128 + 60 * np.sin(4.1 * X + 0.9 * Y) + 35 * np.cos(1.73 * X)
+            + 18 * np.sin(2.31 * Y) + 10 * np.sin(0.83 * X)).astype(
+                np.float32)
+
+
+@pytest.fixture(scope="module")
+def sharded_ba_runs():
+    """ShardedFlame with do_ba on dryrun_multichip's BA sequence (14
+    frames, every second one a poseframe, 512 features, BA window 4 with
+    3 Gauss-Newton iterations, max_obs 1001 so that the observation rows
+    are padded to the mesh) in both packages, on 4 partitions (the port's
+    of the CPU, the JAX package's 4 virtual devices)."""
+    sys.path.insert(0, REPO)
+    import __graft_entry__ as ge
+    from flame_tpu.params import BAParams
+    from flame_tpu.parallel import sharding as jsh
+    from flame_tpu.parallel.orchestrator import ShardedFlame as JSharded
+    import jax
+    jp = ge._small_params(feature_capacity=512, edge_capacity=2048).replace(
+        triangle_capacity=1024, poseframe_capacity=8, min_height=-100.0,
+        max_height=100.0, idepth_init=0.05, idepth_var_init=0.25,
+        detection=DetectionParams(win_size=16), do_ba=True,
+        ba=BAParams(window_size=4, n_gn_iters=3, obs_capacity=4096,
+                    max_landmarks=256, max_obs=1001),
+        solver=SolverParams(n_iters_per_frame=30, max_vertex_degree=16,
+                            smoother="vertex"))
     K, Kinv = _K()
-    p = flame_tpu_torch.Params(do_ba=True, feature_capacity=512,
-                               edge_capacity=2048)
-    with pytest.raises(NotImplementedError):
-        ShardedFlame(W, H, np.array(K), np.array(Kinv), p,
-                     mesh=sharding.make_mesh(2, "cpu"), device="cpu")
+    jf = JSharded(W, H, K, Kinv, jp, mesh=jsh.make_mesh(jax.devices()[:4]))
+    tf = ShardedFlame(W, H, np.array(K), np.array(Kinv),
+                      convert.params_from_dict(dataclasses.asdict(jp)),
+                      mesh=sharding.make_mesh(4, "cpu"), device="cpu")
+    for i in range(14):
+        q = np.array([1.0, 0, 0, 0], np.float32)
+        t = np.array([0.15 * i, 0, 0], np.float32)
+        img = _render_float(0.15 * i)
+        jf.update(i * 0.1, i, (jnp.asarray(q), jnp.asarray(t)), img,
+                  i % 2 == 0)
+        tf.update(i * 0.1, i, (q, t), img, i % 2 == 0)
+    return {"jax": jf, "torch": tf}
+
+
+@pytest.mark.parametrize("which", ["jax", "torch"])
+def test_sharded_flame_runs_ba(sharded_ba_runs, which):
+    """Every BA solve under the mesh takes the observation-sharded path,
+    and the run meets the dry run's bounds (coverage > 0.4, median
+    relative error < 0.05). Trajectories are not compared: the sharded
+    solve applies at once, the single one a step or two later."""
+    fl = sharded_ba_runs[which]
+    idm = fl.get_inverse_depth_map()
+    cov = float(np.mean(~np.isnan(idm)))
+    err = float(np.nanmedian(np.abs(idm - TRUE_IDEPTH)) * PLANE_Z)
+    assert cov > 0.4, cov
+    assert err < 0.05, err
+    assert fl.stats.stats("ba_sharded_solves") >= 1
+    assert fl.stats.stats("ba_single_solves") == 0.0
 
 
 def test_failure_stats_match_jax():
@@ -235,6 +286,10 @@ def test_port_imports_no_jax():
             "flame_tpu_torch.ops.raster_kernel, flame_tpu_torch.ops.pyramid, "
             "flame_tpu_torch.utils.checkpoint, "
             "flame_tpu_torch.utils.load_tracker, "
+            "flame_tpu_torch.parallel.sharding, "
+            "flame_tpu_torch.parallel.distributed_ba, "
+            "flame_tpu_torch.parallel.multihost, "
+            "flame_tpu_torch.parallel.orchestrator, "
             "flame_tpu_torch.run_synthetic; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('flame_tpu.') or m == 'flame_tpu' "
