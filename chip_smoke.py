@@ -99,6 +99,29 @@ Phases (any failure raises and the script exits non-zero):
      NCCL: sharded_smooth and solve_window_sharded on global_mesh()
      bit-equal to their one-partition results under
      torch.use_deterministic_algorithms.
+ 12. the multi-card transport on the one card (a host with two cards
+     would time the transport between them; this one has one): the
+     script starts itself twice as the ranks of a gloo group whose mesh
+     lies on the card (multihost.global_mesh(device="cuda")), each rank
+     computing on the card with its collectives and strips through host
+     tensors and K3's strips through CUDA IPC peer buffers. (a) K3 over
+     the group on phase 3's graph (reach 3, 40 iterations): the gathered
+     smooth_sharded result bit-equal to K3 on make_mesh(2) and
+     make_mesh(1) of one process, one launch per rank and call, and five
+     launches queued back to back (epoch-counted flags, never reset)
+     each bit-equal to the rank's block of make_mesh(2)'s result; ms per
+     call, the two processes' contexts time-slicing on the one card. (b)
+     ShardedFlame over the group at bench_params() (640x480, 4096
+     features) on phase 6's scene: "pallas_halo" for 30 frames (2048
+     feature rows per rank; the map within a median 1e-4 of ShardedFlame
+     on make_mesh(2) in one process, phase 6's gates, K3 and K2 once and
+     K1 never per post-Delaunay step), "vertex" and "halo" for 12 frames
+     against make_mesh(2) the same way; then mini-TUM 256x192 on noisy
+     poses with BA over the group: ATE below 0.8x of the run without BA
+     (phase 9's gate), every solve sharded. A rank that fails makes the
+     script fail. (c) one NCCL rank in this process: ShardedFlame over
+     global_mesh() with "pallas_halo" bit-equal to make_mesh(1) under
+     torch.use_deterministic_algorithms.
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON summary (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -556,13 +579,12 @@ def check_raster_batch(g, tris_np, W=640, H=480, B=8):
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
 
 
-def banded_layout(g, D=20, reach=K3_REACH):
-    """make_graph's graph in the RCM-banded layout (ranks ordered by edge
-    length, as Flame orders them), and the flat slot of each edge's dst
-    dual copy."""
+def rcm_tables(g, D, reach):
+    """The RCM order, its inverse and the RCM-order edge ranks of
+    make_graph's graph (ordered by edge length, as Flame orders them), as
+    tensors on the graph's device."""
     from flame_tpu_torch.optimize import smoother_kernel
     V, E = g.x.shape[0], g.q1.shape[0]
-    dev = g.x.device
     n_e = int(g.edge_mask.sum())
     edges = g.edges[:n_e].cpu().numpy()
     pos = g.pos.cpu().numpy()
@@ -573,12 +595,20 @@ def banded_layout(g, D=20, reach=K3_REACH):
     inv[perm] = np.arange(V, dtype=np.int32)
     ranks = smoother_kernel.perm_edge_ranks(edges, n_e, inv, E, D, reach,
                                             tie=np.sqrt((d * d).sum(1)))
-    t = lambda a: torch.as_tensor(a, device=dev)
-    lay = smoother_kernel.build_layout(g, t(perm), t(inv), t(ranks), D,
-                                       reach)
-    hi_p = t(inv.astype(np.int64))[g.edges[:, 1]]
-    dst = ((hi_p // 128) * D + t(ranks[:, 1].astype(np.int64))) * 128 \
-        + hi_p % 128
+    t = lambda a: torch.as_tensor(a, device=g.x.device)
+    return t(perm).long(), t(inv).long(), t(ranks)
+
+
+def banded_layout(g, D=20, reach=K3_REACH):
+    """make_graph's graph in the RCM-banded layout (ranks ordered by edge
+    length, as Flame orders them), and the flat slot of each edge's dst
+    dual copy."""
+    from flame_tpu_torch.optimize import smoother_kernel
+    perm, inv, ranks = rcm_tables(g, D, reach)
+    lay = smoother_kernel.build_layout(g, perm, inv, ranks, D, reach)
+    hi_p = inv[g.edges[:, 1]]
+    dst = ((hi_p // 128) * D + ranks[:, 1].long()) * 128 + hi_p % 128
+    n_e = int(g.edge_mask.sum())
     return lay, dst, int((ranks[:n_e, 0] == 255).sum())
 
 
@@ -1759,6 +1789,308 @@ def check_process_group(smi, g, n_iters=40):
                              "partition")
 
 
+# Phase 12: the multi-card transport on the one card.
+GROUP_RANKS = 2
+GROUP_TIMEOUT_S = 420  # both ranks together, builds loaded from _build/
+GROUP_FRAMES = 30  # phase 6's
+GROUP_SHORT_FRAMES = 12  # "vertex" and "halo"
+GROUP_BACK_TO_BACK = 5
+
+
+def group_k3(smi, mesh, rank, n_iters=40, reach=K3_REACH):
+    """12a on this rank: K3 over the group against make_mesh(2) and
+    make_mesh(1) of this process, bit for bit."""
+    import torch.distributed as dist
+    from flame_tpu_torch import RegularizerParams, _kernels
+    from flame_tpu_torch.optimize import smoother_kernel
+    from flame_tpu_torch.parallel import halo_kernel, sharding
+    p = RegularizerParams()
+    dev = torch.device("cuda")
+    g, _, _ = make_graph(dev)
+    D = g.inc_edge.shape[1]
+    perm, inv, ranks = rcm_tables(g, D, reach)
+    args = (p, g, perm, inv, ranks, n_iters, D)
+    refs = {m: halo_kernel.smooth_sharded(*args, sharding.make_mesh(m),
+                                          reach=reach) for m in (1, 2)}
+    for k in SHARD_FIELDS:
+        if not torch.equal(getattr(refs[1], k), getattr(refs[2], k)):
+            raise AssertionError(f"12a: make_mesh(2) departs from "
+                                 f"make_mesh(1) in {k}")
+    calls_ms = []
+    for _ in range(2):
+        dist.barrier()
+        before = _kernels.LAUNCHES["halo_smoother"]
+        t0 = time.perf_counter()
+        out = halo_kernel.smooth_sharded(*args, mesh, reach=reach)
+        torch.cuda.synchronize()
+        calls_ms.append(1000 * (time.perf_counter() - t0))
+        if _kernels.LAUNCHES["halo_smoother"] - before != 1:
+            raise AssertionError("12a: not one K3 launch per rank and call")
+        for k in SHARD_FIELDS:
+            if not torch.equal(getattr(out, k), getattr(refs[2], k)):
+                raise AssertionError(f"12a: the group's {k} departs from "
+                                     f"make_mesh(2)'s")
+    # Five launches queued back to back on the rank's block: the flags
+    # are never reset, each call's epoch lies above the last one's.
+    lay = smoother_kernel.build_layout(g, perm, inv, ranks, D, reach)
+    R = lay.vtx[0].shape[0]
+    Rb = R // GROUP_RANKS
+    r0 = rank * Rb
+    vtx = [a[r0:r0 + Rb] for a in lay.vtx]
+    slots = [a[r0 * D:(r0 + Rb) * D] for a in lay.slots]
+    whole = halo_kernel.iterate(p, n_iters, D, reach, 2, lay.vtx, lay.slots)
+    want = [a[r0:r0 + Rb] if k < 6 else a[r0 * D:(r0 + Rb) * D]
+            for k, a in enumerate(whole)]
+    dist.barrier()
+    torch.cuda.synchronize()
+    a_ev = torch.cuda.Event(enable_timing=True)
+    b_ev = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a_ev.record()
+    outs = [halo_kernel.iterate(p, n_iters, D, reach, 1, vtx, slots, mesh)
+            for _ in range(GROUP_BACK_TO_BACK)]
+    b_ev.record()
+    torch.cuda.synchronize()
+    host_ms = 1000 * (time.perf_counter() - t0) / GROUP_BACK_TO_BACK
+    card_ms = a_ev.elapsed_time(b_ev) / GROUP_BACK_TO_BACK
+    for c, o in enumerate(outs):
+        for k, (a, b) in enumerate(zip(o, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"12a: back-to-back call {c}, output "
+                                     f"{k} departs from make_mesh(2)'s")
+    plan = halo_kernel._plan(0, Rb * 128, D, 1, reach)
+    print(f"12a K3 over {GROUP_RANKS} ranks (gloo, one card, CUDA IPC "
+          f"strips) V={g.x.shape[0]} D={D} reach={reach} iters={n_iters}: "
+          f"smooth_sharded bit-equal to make_mesh(2) and make_mesh(1), one "
+          f"launch per rank and call; {GROUP_BACK_TO_BACK} launches back to "
+          f"back bit-equal (epoch flags); rank plan {plan.clusters} "
+          f"clusters of {plan.cluster} CTAs, {plan.vertices_per_warp} "
+          f"vertices per warp; per call {card_ms:.3f} ms between CUDA "
+          f"events ({host_ms:.3f} ms host) and smooth_sharded with layout "
+          f"and gather {calls_ms[-1]:.3f} ms, the two processes' contexts "
+          f"time-slicing on the one card (not a time between two cards); "
+          f"{smi}")
+    return card_ms
+
+
+def group_flame(smi, mesh, smoother, n_frames):
+    """12b on this rank: ShardedFlame over the group at bench_params()
+    against ShardedFlame on make_mesh(2) of this process; returns the
+    group run's launch counts."""
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.parallel import sharding
+    from flame_tpu_torch.parallel.orchestrator import ShardedFlame
+    K, Kinv, frames = scene(n_frames)
+    params = with_smoother(bench_params(), smoother)
+    per_step = ({"halo_smoother": 1, "nltgv2_smoother": 0, "raster_mesh": 1}
+                if smoother == "pallas_halo" else
+                {"halo_smoother": 0, "nltgv2_smoother":
+                 int(smoother == "vertex"), "raster_mesh": 1})
+    fl = ShardedFlame(W, H, K, Kinv, params, mesh=mesh)
+    _kernels.reset_launches()
+    frame_ms, meshed = [], 0
+    for i in range(n_frames):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        ok = fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+        torch.cuda.synchronize()
+        if ok:
+            meshed += 1
+            frame_ms.append(1000 * (time.perf_counter() - t0))
+            ds = {k: _kernels.LAUNCHES[k] - before[k] for k in per_step}
+            if ds != per_step:
+                raise AssertionError(f"12b {smoother} frame {i}: launches "
+                                     f"{ds} (want {per_step})")
+    launches = dict(_kernels.LAUNCHES)
+    N = params.feature_capacity // GROUP_RANKS
+    if not (fl._feats.idepth_mu.shape[0] == N and fl._curr.xy.shape[0] == N
+            and fl._graph.x.shape[0] == N
+            and fl._graph.q1.shape[0] == params.edge_capacity // GROUP_RANKS
+            and tuple(fl._idepthmap.shape) == (H, W)
+            and fl._stack.img_pad.shape[0] == params.poseframe_capacity):
+        raise AssertionError(f"12b {smoother}: state not placed in blocks")
+    idm = fl.get_inverse_depth_map()
+    ref = ShardedFlame(W, H, K, Kinv, params, mesh=sharding.make_mesh(2))
+    for i in range(n_frames):
+        ref.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+    ref_map = ref.get_inverse_depth_map()
+    both = ~np.isnan(idm) & ~np.isnan(ref_map)
+    diff = float(np.median(np.abs(idm[both] - ref_map[both])))
+    label = (f"12b ShardedFlame {smoother} over {GROUP_RANKS} ranks, "
+             f"640x480, 4096 features ({N} rows per rank), {n_frames} "
+             f"frames ({meshed} meshed)")
+    print(f"{label}: median |idepth - make_mesh(2) idepth| {diff:.3g} "
+          f"(< 1e-4) over {both.mean():.4f} of the pixels; median frame "
+          f"{np.median(frame_ms[4:]):.3f} ms host wall; launches {launches}; "
+          f"{smi}")
+    if not (diff < 1e-4 and both.mean() > 0.5 and meshed >= n_frames // 2):
+        raise AssertionError(f"{label}: departs from make_mesh(2)")
+    if n_frames == GROUP_FRAMES:
+        check_map(fl, label)
+    return launches
+
+
+def group_ba(smi, mesh, rank):
+    """12b's BA run on this rank: mini-TUM 256x192 on noisy poses with BA
+    over the group against the run without BA (the coordinator's, in one
+    process); gated on the coordinator."""
+    import torch.distributed as dist
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.io import synthetic
+    root = [tempfile.mkdtemp() if rank == 0 else None]
+    meta = [None]
+    if rank == 0:
+        meta[0] = synthetic.generate_mini_tum(root[0], n_frames=24,
+                                              width=256, height=192,
+                                              fx=210.0, **DS_NOISE)
+    dist.broadcast_object_list(root, src=0)
+    dist.broadcast_object_list(meta, src=0)
+    root, meta = root[0], meta[0]
+    try:
+        _kernels.reset_launches()
+        fl, _, frame_ms, solve_ms = dataset_run(
+            root, 24, mini_tum_params(True), meta["K"], meta["noisy"], 2,
+            mesh=mesh)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        ate = pf_ate(fl, meta["gt"])
+        st = fl.stats
+        if rank == 0:
+            nz, _, _, _ = dataset_run(root, 24, mini_tum_params(False),
+                                      meta["K"], meta["noisy"], 2)
+            ratio = ate / pf_ate(nz, meta["gt"])
+            print(f"12b BA over {GROUP_RANKS} ranks, mini-TUM 256x192 noisy: "
+                  f"ATE {1000 * ate:.3f} mm, {ratio:.4f} of the run without "
+                  f"BA (< 0.8); sharded solves "
+                  f"{int(st.stats('ba_sharded_solves'))}, single "
+                  f"{int(st.stats('ba_single_solves'))}, applied "
+                  f"{int(st.stats('ba_solves_applied'))}; median update "
+                  f"{np.median(frame_ms[4:]):.3f} ms host wall; launches "
+                  f"{launches}; {smi}")
+            if not (ratio < 0.8 and st.stats("ba_sharded_solves") >= 1
+                    and st.stats("ba_single_solves") == 0
+                    and st.stats("ba_solves_applied") >= 1):
+                raise AssertionError("12b BA over the group: gates failed")
+        dist.barrier()
+    finally:
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def group_rank_main(rank, coord, out_path):
+    """One rank of phase 12a-b (chip_smoke.py --group-rank R --coord
+    HOST:PORT --out FILE): joins the gloo group, runs its checks, and the
+    coordinator writes the main-path launch counts to FILE."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.parallel import multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    _kernels.load()
+    multihost.initialize(coord, GROUP_RANKS, rank, backend="gloo")
+    try:
+        mesh = multihost.global_mesh(device="cuda")
+        if not (mesh.staged and mesh.size == GROUP_RANKS
+                and mesh.first_block == rank):
+            raise AssertionError(f"12: global mesh {mesh}")
+        k3_ms = group_k3(smi, mesh, rank)
+        runs = [group_flame(smi, mesh, "pallas_halo", GROUP_FRAMES)]
+        runs += [group_flame(smi, mesh, sm, GROUP_SHORT_FRAMES)
+                 for sm in ("vertex", "halo")]
+        runs.append(group_ba(smi, mesh, rank))
+    finally:
+        multihost.shutdown()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"launches": runs, "k3_ms": k3_ms}, f)
+    print(f"rank {rank} OK", flush=True)
+
+
+def group_one_nccl_rank(smi, n_frames=16):
+    """12c: ShardedFlame over a one-rank NCCL group with "pallas_halo"
+    against make_mesh(1), bit for bit under
+    torch.use_deterministic_algorithms. Returns the group run's launch
+    counts."""
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.parallel import multihost, sharding
+    from flame_tpu_torch.parallel.orchestrator import ShardedFlame
+    K, Kinv, frames = scene(n_frames)
+    params = with_smoother(bench_params(), "pallas_halo")
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        maps, launches = {}, None
+        for name in ("group", "one"):
+            mesh = (multihost.global_mesh() if name == "group"
+                    else sharding.make_mesh(1))
+            fl = ShardedFlame(W, H, K, Kinv, params, mesh=mesh)
+            _kernels.reset_launches()
+            for i in range(n_frames):
+                fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+            torch.cuda.synchronize()
+            if name == "group":
+                launches = dict(_kernels.LAUNCHES)
+            maps[name] = fl.get_inverse_depth_map()
+    finally:
+        torch.use_deterministic_algorithms(was)
+        multihost.shutdown()
+    same = np.array_equal(maps["group"], maps["one"], equal_nan=True)
+    print(f"12c ShardedFlame pallas_halo over one NCCL rank, {n_frames} "
+          f"frames: map bit-equal to make_mesh(1) {same}; launches "
+          f"{launches}; {smi}")
+    if not same or launches["halo_smoother"] < 1:
+        raise AssertionError("12c: the one-rank group departs from "
+                             "make_mesh(1)")
+    return launches
+
+
+def transport_phase(smi):
+    """Phase 12; returns the launch counts of its main-path runs (rank 0's
+    12b runs and 12c's)."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"12: compute mode {mode}")
+    coord = f"127.0.0.1:{_free_port()}"
+    out_dir = tempfile.mkdtemp()
+    out_path = os.path.join(out_dir, "rank0.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--group-rank", str(r),
+         "--coord", coord, "--out", out_path], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(GROUP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            remaining = GROUP_TIMEOUT_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(remaining, 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            print(f"[rank {r}] {line}")
+    rcs = [p.returncode for p in procs]
+    print(f"12a-b: {GROUP_RANKS} ranks in {time.perf_counter() - t0:.1f} s, "
+          f"exit codes {rcs}")
+    if any(rcs) or len(outs) != GROUP_RANKS:
+        raise AssertionError(f"12: a rank failed ({rcs})")
+    with open(out_path) as f:
+        res = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res["launches"] + [group_one_nccl_rank(smi)]
+
+
 def multichip_layer(smi, g, sharded_ba):
     """Phase 11; returns the launch counts of its main-path runs."""
     dev = g.x.device
@@ -1806,6 +2138,7 @@ def main():
                                                     r["noisy"]["ate"]))
     runs += [vga] + api_residue(smi)
     runs += multichip_layer(smi, g, sharded_ba)
+    runs += transport_phase(smi)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",
@@ -1836,4 +2169,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--group-rank" in sys.argv:
+        a = sys.argv
+        group_rank_main(int(a[a.index("--group-rank") + 1]),
+                        a[a.index("--coord") + 1], a[a.index("--out") + 1])
+    else:
+        main()

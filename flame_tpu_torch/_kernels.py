@@ -17,7 +17,11 @@ pass in one launch) and raster_mesh_batch (K2b, the same for B views, one
 union binning per tile for all of them); halo_smoother (K3, one launch
 for every partition and iteration, a thread-block cluster per partition)
 with halo_smoother_occupancy (the clusters the card holds at once, for
-the wrapper's launch plan). Each returns its cudaError_t.
+the wrapper's launch plan), and the peer-buffer entries of K3's ring
+across processes: halo_peer_alloc (cudaMalloc outside the caching
+allocator, zeroed), halo_peer_handle (its CUDA IPC handle),
+halo_peer_open / halo_peer_close (a neighbour's allocation mapped from its
+handle) and halo_peer_free. Each returns its cudaError_t.
 
 Each wrapper adds one to its entry of LAUNCHES per kernel launch; a run
 reads the counts to show that its path went through the kernels.
@@ -136,10 +140,21 @@ def load() -> types.SimpleNamespace:
             [P] * 9           # x w1 w2 xb w1b w2b (in/out), data weight vmask
             + [P] * 8         # nbr rowflag sdx sdy sal sbe sgn srcf
             + [P] * 5         # q1 q2 q3 (in/out), rx, flags
-            + [I] * 7         # n rb d reach n_iters cluster vpw
+            + [P] * 4         # rx_lo flags_lo rx_hi flags_hi
+            + [I] * 8         # n rb d reach n_iters epoch cluster vpw
             + [F] * 6 + [P])  # step_x ... data_factor, stream
         halo.halo_smoother_occupancy.restype = I
         halo.halo_smoother_occupancy.argtypes = [I, I, I, P]
+        halo.halo_peer_alloc.restype = I
+        halo.halo_peer_alloc.argtypes = [ctypes.c_size_t, P]
+        for name in ("halo_peer_handle", "halo_peer_open"):
+            getattr(halo, name).restype = I
+            getattr(halo, name).argtypes = [P, P]
+        for name in ("halo_peer_close", "halo_peer_free"):
+            getattr(halo, name).restype = I
+            getattr(halo, name).argtypes = [P]
+        halo.halo_peer_handle_size.restype = I
+        halo.halo_peer_handle_size.argtypes = []
         BUILD_INFO["libraries"] = list(paths.values())
         _lib = types.SimpleNamespace(
             nltgv2_smoother=smoother.nltgv2_smoother,
@@ -147,7 +162,11 @@ def load() -> types.SimpleNamespace:
             raster_mesh=raster.raster_mesh,
             raster_mesh_batch=raster.raster_mesh_batch,
             halo_smoother=halo.halo_smoother,
-            halo_smoother_occupancy=halo.halo_smoother_occupancy)
+            halo_smoother_occupancy=halo.halo_smoother_occupancy,
+            **{k: getattr(halo, k) for k in (
+                "halo_peer_alloc", "halo_peer_handle", "halo_peer_open",
+                "halo_peer_close", "halo_peer_free",
+                "halo_peer_handle_size")})
         return _lib
 
 

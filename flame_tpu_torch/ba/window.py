@@ -34,6 +34,7 @@ from flame_tpu_torch.ba import residuals as resid
 from flame_tpu_torch.ba import schur
 from flame_tpu_torch.core import frame as frame_mod
 from flame_tpu_torch.core import pipeline
+from flame_tpu_torch.parallel import sharding
 from flame_tpu_torch.params import BAParams
 from flame_tpu_torch.utils import evaluation
 
@@ -373,21 +374,23 @@ class _GraphedSolve:
         return self.out
 
 
-def _apply_idepths(feats: pipeline.FeatureState,
-                   trip: torch.Tensor) -> pipeline.FeatureState:
+def _apply_idepths(feats: pipeline.FeatureState, trip: torch.Tensor,
+                   first_slot: int = 0) -> pipeline.FeatureState:
     """Scatter refined idepths into the feature state: trip (L, 4) int32
     rows [slot, feat_id, anchor_slot, mu_bits]. A row applies only where
     the slot is valid and still holds the same feat_id (compared mod
     2^24, as the packed transfer carries it) and the same anchor
     poseframe slot: a feature re-anchored between stage and apply keeps
     its feat_id, but its idepth now lives in the new anchor frame, and
-    re-anchoring always changes the slot."""
-    slots = trip[:, 0].long()
+    re-anchoring always changes the slot. feats may be a block of the
+    state whose first row is slot first_slot (a rank's block over a
+    process group): rows of other slots do not apply."""
+    slots = trip[:, 0].long() - first_slot
     ids = trip[:, 1]
     mus = trip[:, 3].contiguous().view(torch.float32)
     N = feats.idepth_mu.shape[0]
     sl = torch.clamp(slots, 0, N - 1)
-    ok = (slots >= 0) \
+    ok = (slots >= 0) & (slots < N) \
         & ((feats.feat_id[sl] & 0xFFFFFF) == (ids & 0xFFFFFF)) \
         & (feats.pf_slot[sl] == trip[:, 2].long()) & feats.valid[sl]
     mu = torch.cat([feats.idepth_mu, feats.idepth_mu[:1]])
@@ -618,5 +621,10 @@ class BundleAdjuster:
         trip[:Lk, 1] = meta["lm_ids"]
         trip[:Lk, 2] = meta["lm_anchor_slots"]
         trip[:, 3] = lm.astype(np.float32).view(np.int32)
+        first = 0
+        if sharding.grouped(self.mesh):
+            first = sharding.block_slice(fl.params.feature_capacity,
+                                         self.mesh).start
         fl._feats = _apply_idepths(fl._feats,
-                                   torch.as_tensor(trip, device=fl.device))
+                                   torch.as_tensor(trip, device=fl.device),
+                                   first)

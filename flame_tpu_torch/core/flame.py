@@ -53,6 +53,21 @@ ShardedFlame's mesh, _ba_mesh, it solves with the observation-sharded
 assembly and applies at once).
 
 utils/checkpoint.py saves and restores the whole state.
+
+Under ShardedFlame over a process group (parallel/orchestrator.py) the
+feature and graph state hold this rank's block only. The stages that
+read the whole state gather it explicitly (sharding.gather_rows) and
+keep their block of the result (sharding.shard_rows): tracking runs on
+the block, detection and insertion, the snapshot, topology, graph sync
+and the mesh outputs on the gathered state on every rank, the halo
+smoothers over the group. Every rank triangulates the same snapshot
+(the same bits in give the same triangles; a broadcast of the
+coordinator's result would add a collective whose size is known only
+after the triangulation), and a decision that depends on timing (has a copy or a triangulation
+landed?) is the coordinator's for the whole group (sharding.agree), so
+every rank issues the same collectives in the same order from the main
+thread. The getters that read feature or graph state gather it: every
+rank calls them.
 """
 
 import collections
@@ -71,7 +86,7 @@ from flame_tpu_torch.geometry import epipolar
 from flame_tpu_torch.mesh import delaunay
 from flame_tpu_torch.ops import rasterize
 from flame_tpu_torch.optimize import nltgv2, smoother_kernel, topology
-from flame_tpu_torch.parallel import halo
+from flame_tpu_torch.parallel import halo, sharding
 from flame_tpu_torch.params import Params
 from flame_tpu_torch.utils import visualization
 from flame_tpu_torch.utils.stats import StatsTracker
@@ -471,10 +486,11 @@ class Flame:
              packed) = pipeline.track_step(
                 p, self.K, self.Kinv, self._stack, self._feats, self._fnew,
                 self._curr_pf_slot, prev.q, prev.t, do_detect,
-                self._feat_id_counter, self._idepthmap)
+                self._feat_id_counter, self._idepthmap,
+                mesh=self._sharding_mesh)
         if do_detect:
             self._feat_id_counter += self._add_cap
-        self._curr = curr
+        self._curr = sharding.shard_rows(curr, self._sharding_mesh)
         self._last_stats_dev = stat_vec
         self._last_dispatch_frames = 1
 
@@ -631,6 +647,11 @@ class Flame:
                   "(packed transfer not staged; see "
                   "stats['ba_obs_dropped_pfs'])", file=sys.stderr)
 
+    def _agree(self, flag: bool) -> bool:
+        """A decision that depends on timing, taken by the coordinator for
+        the whole group under a process-group mesh (sharding.agree)."""
+        return sharding.agree(flag, self._sharding_mesh)
+
     def _set_counts(self):
         self.stats.set("num_feats", self._n_valid)
         self.stats.set("num_vtx", self._n_members)
@@ -658,7 +679,7 @@ class Flame:
         joined_any = False
         while self._packed_queue:
             pk, pk_frame, pk_meta, pk_stamps = self._packed_queue[0]
-            ready = pk.ready()
+            ready = self._agree(pk.ready())
             if not (det or ready):
                 if self.num_imgs - pk_frame < join_age:
                     break  # young in-flight head: let it land on its own
@@ -702,7 +723,8 @@ class Flame:
         latency samples."""
         live = []
         for pk, stamps in self._zombie_fetches:
-            if pk.ready():
+            if self._agree(pk.ready()):
+                pk.get()  # the coordinator's copy landed; wait for ours
                 self._note_latency(pk, stamps)
             else:
                 live.append((pk, stamps))
@@ -773,7 +795,7 @@ class Flame:
         if self._tri_pending is None:
             return
         work, _frame = self._tri_pending
-        if not (force or work.ready()):
+        if not (force or self._agree(work.ready())):
             return
         self._tri_pending = None
         host = work.get()
@@ -928,16 +950,21 @@ class Flame:
         the frame whose pixel coordinates it holds (the last one a sync
         ran for)."""
         p = self.params
+        mesh = self._sharding_mesh
         prev = self._fprev if self._fprev is not None else self._fnew
         sync_pose = (self._last_sync_pose if self._last_sync_pose is not None
                      else (prev.q, prev.t))
-        (self._graph, self._vtx_idepths, self._vtx_normals,
+        (graph, vtx_idepths, vtx_normals,
          self._tri_validity, self._idepthmap, self._graph_scale,
          self._coverage) = pipeline._post_delaunay_inner(
-            p, self.K, self.Kinv, self._graph, member, curr, sync_pose,
+            p, self.K, self.Kinv, sharding.gather_rows(mesh, self._graph),
+            member, curr, sync_pose,
             (self._fnew.q, self._fnew.t), self._graph_scale, self.width,
             self.height, self._idepthmap if p.init_with_prediction else None,
-            mesh=self._sharding_mesh, timed=self.stats.timed, **topo.dev)
+            mesh=mesh, timed=self.stats.timed, **topo.dev)
+        self._graph, self._vtx_idepths, self._vtx_normals = (
+            sharding.shard_rows(a, mesh)
+            for a in (graph, vtx_idepths, vtx_normals))
         self._last_sync_pose = (self._fnew.q, self._fnew.t)
         self._set_applied(topo)
         if p.do_nltgv2:
@@ -946,13 +973,15 @@ class Flame:
     def _bootstrap_detect(self, pf_slot: int):
         if self._fprev is None:
             return
-        self._feats, valid = pipeline.bootstrap_detect(
-            self.params, self.K, self.Kinv, self._stack, self._feats,
+        mesh = self._sharding_mesh
+        feats, curr = sharding.gather_rows(mesh, self._feats, self._curr)
+        feats, _valid = pipeline.bootstrap_detect(
+            self.params, self.K, self.Kinv, self._stack, feats,
             self._fprev.q, self._fprev.t, pf_slot, self._idepthmap,
-            self._feat_id_counter, self._curr.xy, self._curr.valid)
+            self._feat_id_counter, curr.xy, curr.valid)
+        self._feats = sharding.shard_rows(feats, mesh)
         self._feat_id_counter += self._add_cap
-        self._feat_valid_np = valid.cpu().numpy()
-        self._n_valid = int(self._feat_valid_np.sum())
+        self._refresh_feat_mirror()
 
     # ------------------------------------------------------------------
     # Poseframes (reference flame.h:155-179, flame.cc:554-706).
@@ -1051,7 +1080,8 @@ class Flame:
                                    self._as_pose_tensor(t))
 
     def _refresh_feat_mirror(self):
-        self._feat_valid_np = self._feats.valid.cpu().numpy().copy()
+        self._feat_valid_np = sharding.gather_rows(
+            self._sharding_mesh, self._feats.valid).cpu().numpy().copy()
         self._n_valid = int(self._feat_valid_np.sum())
 
     # ------------------------------------------------------------------
@@ -1071,17 +1101,22 @@ class Flame:
         """The dense map over the triangles that pass the triangle filters
         only (reference flame.h:217-228); K2 on the card."""
         self._flush_batch()
+        pos, vtx_idepths = sharding.gather_rows(
+            self._sharding_mesh, self._graph.pos, self._vtx_idepths)
         tri_ok = (torch.arange(self._tris.shape[0], device=self.device)
                   < self._n_tris) & self._tri_validity
         return rasterize.rasterize_auto(
-            self._graph.pos, self._tris, self._vtx_idepths, tri_ok,
+            pos, self._tris, vtx_idepths, tri_ok,
             self.height, self.width).cpu().numpy()
 
     def get_inverse_depth_mesh(self):
         """Compacted mesh: vertices, idepths, w1, w2, normals, triangles,
         tri_validity, edges (indices into the compacted vertex list)."""
         self._flush_batch()
-        member = self._graph.vtx_mask.cpu().numpy()
+        g, vtx_idepths, vtx_normals = sharding.gather_rows(
+            self._sharding_mesh, self._graph, self._vtx_idepths,
+            self._vtx_normals)
+        member = g.vtx_mask.cpu().numpy()
         slots = np.nonzero(member)[0]
         remap = np.full(member.shape[0], -1, np.int64)
         remap[slots] = np.arange(slots.shape[0])
@@ -1090,13 +1125,12 @@ class Flame:
         validity = self._tri_validity[:self._n_tris].cpu().numpy()
         tri_ok = np.all(tris >= 0, axis=1)
         edge_ok = np.all(edges >= 0, axis=1)
-        g = self._graph
         return {
             "vertices": g.pos.cpu().numpy()[slots],
-            "idepths": self._vtx_idepths.cpu().numpy()[slots],
+            "idepths": vtx_idepths.cpu().numpy()[slots],
             "w1": g.w1.cpu().numpy()[slots],
             "w2": g.w2.cpu().numpy()[slots],
-            "normals": self._vtx_normals.cpu().numpy()[slots],
+            "normals": vtx_normals.cpu().numpy()[slots],
             "triangles": tris[tri_ok],
             "tri_validity": validity[tri_ok],
             "edges": edges[edge_ok],
@@ -1105,10 +1139,11 @@ class Flame:
     def get_raw_idepths(self):
         """Valid current-frame features: (xy (M, 2), idepth (M,), var)."""
         self._flush_batch()
-        v = self._curr.valid.cpu().numpy()
-        return (self._curr.xy.cpu().numpy()[v],
-                self._curr.idepth.cpu().numpy()[v],
-                self._curr.var.cpu().numpy()[v])
+        curr = sharding.gather_rows(self._sharding_mesh, self._curr)
+        v = curr.valid.cpu().numpy()
+        return (curr.xy.cpu().numpy()[v],
+                curr.idepth.cpu().numpy()[v],
+                curr.var.cpu().numpy()[v])
 
     def failure_stats(self) -> Dict[str, int]:
         """Failure counters of the last step: one frame on the single
@@ -1202,10 +1237,12 @@ class Flame:
         no updates), ambiguous match red, max cost yellow; success blends
         blue -> green over 0..30 updates."""
         img = visualization.to_rgb(self._gray())
-        xy = self._curr.xy.cpu().numpy()
-        valid = self._curr.valid.cpu().numpy()
-        status = self._feats.search_status.cpu().numpy()
-        nupd = self._feats.num_updates.cpu().numpy()
+        curr, feats = sharding.gather_rows(self._sharding_mesh, self._curr,
+                                           self._feats)
+        xy = curr.xy.cpu().numpy()
+        valid = curr.valid.cpu().numpy()
+        status = feats.search_status.cpu().numpy()
+        nupd = feats.num_updates.cpu().numpy()
         Hh, Ww = img.shape[:2]
         for s in np.nonzero(valid)[0]:
             x, y = int(round(xy[s, 0])), int(round(xy[s, 1]))

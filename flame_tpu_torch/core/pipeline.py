@@ -425,18 +425,38 @@ def pack_ba_outputs(params: Params, packed: torch.Tensor, obs: TrackObs,
 
 def track_step(params: Params, K, Kinv, stack: FrameStack,
                feats: FeatureState, fnew: Frame, curr_pf_slot: int,
-               prev_q, prev_t, do_detect: bool, id_base: int, seed_map):
+               prev_q, prev_t, do_detect: bool, id_base: int, seed_map,
+               mesh=None):
     """track_project_sync + (poseframe) detection + packing (widened by
-    pack_ba_outputs under do_ba)."""
+    pack_ba_outputs under do_ba).
+
+    Over a process group (mesh, sharding.grouped) feats is this rank's
+    block and so is the returned feats': tracking runs on the block;
+    insertion into free slots needs the whole occupancy, so detection
+    and insertion run on the gathered state on every rank, which keeps
+    its own rows; the snapshot is packed from the blocks gathered again,
+    so that every rank packs the owners' rows bit for bit. curr, member,
+    obs and packed come back whole, stats summed over the group."""
     feats3, curr, member, stats, obs = track_project_sync(
         params, K, Kinv, stack, feats, fnew, curr_pf_slot)
-    if do_detect:
-        feats3 = _detect_and_insert(params, K, Kinv, stack, curr_pf_slot,
-                                    feats3, curr, prev_q, prev_t, id_base,
-                                    seed_map)
-    packed = pack_track_outputs(feats3, curr, member)
+    feats_w = feats3
+    if sharding.grouped(mesh):
+        stats = sharding.psum([stats], mesh)
+        if do_detect:
+            whole, curr_w = sharding.gather_rows(mesh, feats3, curr)
+            feats3 = sharding.shard_rows(_detect_and_insert(
+                params, K, Kinv, stack, curr_pf_slot, whole, curr_w, prev_q,
+                prev_t, id_base, seed_map), mesh)
+        feats_w, curr, member, *rest = sharding.gather_rows(
+            mesh, feats3, curr, member, *((obs,) if params.do_ba else ()))
+        obs = rest[0] if rest else obs
+    elif do_detect:
+        feats3 = feats_w = _detect_and_insert(
+            params, K, Kinv, stack, curr_pf_slot, feats3, curr, prev_q,
+            prev_t, id_base, seed_map)
+    packed = pack_track_outputs(feats_w, curr, member)
     if params.do_ba:
-        packed = pack_ba_outputs(params, packed, obs, feats3, stack)
+        packed = pack_ba_outputs(params, packed, obs, feats_w, stack)
     return feats3, curr, member, stats, obs, packed
 
 

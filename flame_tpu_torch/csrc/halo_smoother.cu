@@ -7,11 +7,24 @@
 // K-iteration loop on each chip of a 1-D mesh with the state in VMEM and
 // exchanges `reach` boundary rows of (x_bar, w1_bar, w2_bar) with both
 // ring neighbours by remote DMA into parity double-buffered receive slots.
-// Here the mesh is n partitions of one card, each partition a thread-block
-// cluster of C CTAs, its receive slots and flags in global memory. The
-// wrapper is flame_tpu_torch/parallel/halo_kernel.py (launch_plan picks C
-// and the vertices per warp); its plain version (iterate_plain) is the
-// reference this kernel is checked against.
+// Here a launch runs n partitions, each a thread-block cluster of C CTAs,
+// its receive slots and flags in global memory. On a mesh of one process
+// the n partitions are the whole ring. Over a process group each rank
+// launches the kernel over its own block of rows (split into n clusters),
+// and the ring crosses ranks at its ends: partition 0's left neighbour is
+// the previous rank's last partition, partition n - 1's right neighbour
+// the next rank's first one. Their receive slots and flags live in memory
+// each rank allocates itself (cudaMalloc, halo_peer_alloc) and its
+// neighbours map through CUDA IPC (halo_peer_open), so the kernel takes
+// the two end neighbours' slot and flag pointers as arguments (rx_lo,
+// flags_lo, rx_hi, flags_hi): peer pointers across ranks, this launch's
+// own at the ends of a one-process ring. Where the ends are a peer's
+// (peer_ends), the two end partitions fence their strip stores and take
+// their flags at system scope, so the same code is right across NVLink
+// between cards; every other partition, and every partition of a
+// one-process ring, at device scope. The wrapper is flame_tpu_torch/parallel/halo_kernel.py
+// (launch_plan picks C and the vertices per warp); its plain version
+// (iterate_plain) is the reference this kernel is checked against.
 //
 // Layout (smoother_kernel.build_layout): vertex rank u at row u / 128,
 // lane u % 128 of (R, 128) tables; its slot d at row (u / 128) * D + d of
@@ -36,26 +49,43 @@
 // Iteration it reads bars buffer it % 2 and the halo rows and writes the
 // new bars into buffer (it + 1) % 2; a vertex of the top (bottom) `reach`
 // rows also stores its new bars into the left (right) neighbour's
-// receive slot (parity (it + 1) % 2, global memory, __threadfence). Then:
+// receive slot (parity (it + 1) % 2, then a fence). Then:
 //   A. cluster barrier: every read of this iteration and every strip store
 //      of the cluster is done;
-//   B. CTA 0 release-stores it + 2 into the left neighbour's "from right"
-//      flag, CTA C - 1 into the right neighbour's "from left" flag; each
-//      spins (acquire) until its own flag from that side reaches it + 2,
-//      then installs the received strip as its halo rows;
+//   B. CTA 0 release-stores epoch + it + 2 into the left neighbour's "from
+//      right" flag, CTA C - 1 into the right neighbour's "from left" flag;
+//      each spins (acquire) until its own flag from that side reaches
+//      epoch + it + 2, then installs the received strip as its halo rows;
 //   C. cluster barrier: the halo rows are in place for the next iteration.
 // The start bars go the same way before iteration 0 (exchange 0). A
 // partition runs at most one exchange ahead of a neighbour (its strip
 // stores of exchange e + 2 follow its install of e + 1, which waits for
 // the neighbour's flag of e + 1, which the neighbour raises after its
 // install of e), so the parity slots are never overwritten before they
-// are read. Flags only grow within a call and are zeroed on the stream
-// before it. At n = 1 the ring wraps onto the partition itself: the
-// wrapped halo rows are never read, because the band keeps every live
-// edge within `reach` rows of real ranks. A spin that lasts seconds traps
-// instead of hanging the card. The last iteration ends with barrier A
-// alone, so no CTA leaves while another reads its shared memory; the
-// outputs are written from registers after it.
+// are read. At n = 1 on one process the ring wraps onto the partition
+// itself: the wrapped halo rows are never read, because the band keeps
+// every live edge within `reach` rows of real ranks. A spin that lasts
+// seconds (the card's global timer) traps instead of hanging the card.
+//
+// Flags are epoch-counted, never zeroed between calls: across processes a
+// fast neighbour could raise exchange 0 of its next call before a reset
+// on this side, and the signal would be lost. A call runs the exchanges
+// e = 0 .. n_iters - 1 and, where the ring's ends are a peer's, one more,
+// e = n_iters, that moves no strip: after barrier A (no CTA leaves while
+// another reads its shared memory) the edge CTAs raise epoch + n_iters + 1
+// and wait for their neighbours' flags to reach it. The wrapper passes
+// epoch = the sum of n_iters + 1 over the earlier calls on these flags, so
+// the values of a call lie above every value of the calls before it and
+// each call's exchange e waits for exactly the neighbour's exchange e of
+// the same call. The end exchange extends the one-exchange-ahead argument
+// over the call boundary: a partition leaves call c only after its
+// neighbours have raised their end flags, which each raises after
+// installing its last strip, so the strip stores of exchange 0 of call
+// c + 1 (parity 0) cannot overwrite a slot that a neighbour has still to
+// read in call c; inside call c + 1 the argument above holds as before. A
+// ring that is all this launch's needs no end exchange: the next launch on
+// the stream starts after this one has ended. The outputs are written from
+// registers after barrier A.
 //
 // Co-residency: every partition spins on its neighbours, so all clusters
 // must be resident at once. The launch is cooperative with the cluster
@@ -78,11 +108,10 @@
 // bars, so one iteration's latency bounds it: the DSMEM gathers and the
 // slot sums of the VPW vertices of a warp, two cluster barriers and, at
 // n > 1, one flag handshake through L2 with each ring neighbour. Later
-// steps: the banded layout and the write-back built inside the launch,
-// and receive slots in peer memory of other cards for a mesh across cards
-// (the slot and flag addresses are per partition already).
+// steps: the banded layout and the write-back built inside the launch.
 
 #include <cooperative_groups.h>
+#include <cstring>
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
@@ -108,7 +137,7 @@ constexpr int kPing = 1 << 25;    // the neighbour's bars are ping-ponged
 constexpr int kRankShift = 16;    // bits 16-19: the CTA that holds them,
 constexpr int kOffMask = (1 << kRankShift) - 1;  // their 16-byte word there
 constexpr unsigned kFull = 0xffffffffu;
-constexpr long long kSpinLimitCycles = 1LL << 33;  // seconds at SM clocks
+constexpr unsigned long long kSpinLimitNs = 20000000000ull;  // 20 s
 
 struct Args {
   // (R, 128) per-vertex state, updated in place: x w1 w2 and the bars.
@@ -134,10 +163,18 @@ struct Args {
   float* q2;
   float* q3;
   // Receive slots (n, parity 2, side 2, 3, reach, 128), side 0 from the
-  // left neighbour, 1 from the right; flags (n, 2) by the same side.
+  // left neighbour, 1 from the right; flags (n, 2) by the same side. The
+  // slots and flags of partition 0's left neighbour (rx_lo, flags_lo) and
+  // of partition n - 1's right one (rx_hi, flags_hi): a peer's, mapped
+  // through CUDA IPC, where the ring crosses ranks.
   float* rx;
   int* flags;
-  int n, rb, d, reach, n_iters;
+  float* rx_lo;
+  int* flags_lo;
+  float* rx_hi;
+  int* flags_hi;
+  int n, rb, d, reach, n_iters, epoch;
+  int peer_ends;  // the ends are not this launch's own buffers
   float step_x, step_q, theta, x_min, x_max, data_factor;
 };
 
@@ -188,7 +225,52 @@ __device__ __forceinline__ Slot load_spilled(float* sm, int m) {
   return s;
 }
 
-using flag_ref = cuda::atomic_ref<int, cuda::thread_scope_device>;
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One flag handshake at scope S (thread 0 of an edge CTA): release-store v
+// into the neighbours' flags to_left / to_right (null: not this CTA's
+// side), then spin (acquire) until this partition's flags from_left /
+// from_right (null: not waited on) reach v; a spin past kSpinLimitNs
+// traps. The global timer (slow to read, but right across a preemption
+// that moves the CTA to another SM) is read once per 1024 polls.
+template <cuda::thread_scope S>
+__device__ __forceinline__ void handshake_at(int* to_left, int* to_right,
+                                          int* from_left, int* from_right,
+                                          int v) {
+  using ref = cuda::atomic_ref<int, S>;
+  if (to_left != nullptr) {
+    ref(*to_left).store(v, cuda::std::memory_order_release);
+  }
+  if (to_right != nullptr) {
+    ref(*to_right).store(v, cuda::std::memory_order_release);
+  }
+  unsigned long long t0 = 0;
+  for (unsigned spins = 0;
+       (from_left != nullptr &&
+        ref(*from_left).load(cuda::std::memory_order_acquire) < v) ||
+       (from_right != nullptr &&
+        ref(*from_right).load(cuda::std::memory_order_acquire) < v);
+       ++spins) {
+    __nanosleep(32);
+    if ((spins & 1023) == 0) {
+      const unsigned long long t = global_ns();
+      if (spins == 0) {
+        t0 = t;
+      } else if (t - t0 > kSpinLimitNs) {
+        __trap();
+      }
+    }
+  }
+  if (S == cuda::thread_scope_system) {
+    __threadfence_system();
+  } else {
+    __threadfence();
+  }
+}
 
 // Shared memory of one CTA: 16-byte words [bars buffer 0 (VPC) | bars
 // buffer 1 (VPC) | left halo (reach * 128) | right halo (reach * 128)],
@@ -213,7 +295,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int part = blockIdx.x / C;
   const int n = a.n, rb = a.rb, r = a.reach, D = a.d;
   const int nv = rb * kLanes, rl = r * kLanes;
-  const int left = (part + n - 1) % n, right = (part + 1) % n;
+  const int left = part - 1, right = part + 1;  // -1 and n: rx_lo, rx_hi
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int hl = 2 * VPC, hr = 2 * VPC + rl;  // the halo rows' words
   float* bars = reinterpret_cast<float*>(sm4);  // (2, VPC, 4)
@@ -223,8 +305,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t u0 = static_cast<size_t>(part) * nv;
   const int strip = 3 * rl;
   auto rx_slot = [&](int p, int par, int side) {
-    return a.rx + ((static_cast<size_t>(p) * 2 + par) * 2 + side) * strip;
+    float* base = p < 0    ? a.rx_lo
+                  : p >= n ? a.rx_hi
+                           : a.rx + static_cast<size_t>(p) * 4 * strip;
+    return base + (par * 2 + side) * strip;
   };
+  auto flag = [&](int p, int side) {
+    int* base = p < 0 ? a.flags_lo : p >= n ? a.flags_hi : a.flags + 2 * p;
+    return base + side;
+  };
+  // The end partitions of a ring whose ends are a peer's: system scope.
+  const bool sys = a.peer_ends != 0 && (part == 0 || part == n - 1);
 
   // The slots of the warp's vertices, a lane each, with where their
   // neighbour's bars live.
@@ -297,33 +388,35 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     return sent;
   };
+  // Thread 0 of an edge CTA: raise this partition's flag of exchange e
+  // on the neighbours' side and wait for theirs.
+  auto handshake = [&](int e) {
+    int* to_left = rank == 0 ? flag(left, 1) : nullptr;
+    int* to_right = rank == C - 1 ? flag(right, 0) : nullptr;
+    int* from_left = rank == 0 ? flag(part, 0) : nullptr;
+    int* from_right = rank == C - 1 ? flag(part, 1) : nullptr;
+    const int v = a.epoch + e + 1;
+    if (sys) {
+      handshake_at<cuda::thread_scope_system>(to_left, to_right, from_left,
+                                              from_right, v);
+    } else {
+      handshake_at<cuda::thread_scope_device>(to_left, to_right, from_left,
+                                              from_right, v);
+    }
+  };
   // Exchange e (the bars iteration e reads), after this lane's strip
   // stores: barriers A and C and the edge CTAs' handshake between them.
   auto exchange = [&](int e, bool sent) {
-    if (sent) __threadfence();
-    cluster.sync();  // A
-    if (rank == 0 || rank == C - 1) {
-      if (threadIdx.x == 0) {
-        if (rank == 0) {
-          flag_ref(a.flags[2 * left + 1])
-              .store(e + 1, cuda::std::memory_order_release);
-        }
-        if (rank == C - 1) {
-          flag_ref(a.flags[2 * right + 0])
-              .store(e + 1, cuda::std::memory_order_release);
-        }
-        flag_ref from_left(a.flags[2 * part + 0]);
-        flag_ref from_right(a.flags[2 * part + 1]);
-        const long long t0 = clock64();
-        while ((rank == 0 &&
-                from_left.load(cuda::std::memory_order_acquire) < e + 1) ||
-               (rank == C - 1 &&
-                from_right.load(cuda::std::memory_order_acquire) < e + 1)) {
-          __nanosleep(32);
-          if (clock64() - t0 > kSpinLimitCycles) __trap();
-        }
+    if (sent) {
+      if (sys) {
+        __threadfence_system();
+      } else {
         __threadfence();
       }
+    }
+    cluster.sync();  // A
+    if (rank == 0 || rank == C - 1) {
+      if (threadIdx.x == 0) handshake(e);
       __syncthreads();
       const int par = e & 1;
       if (rank == 0) {
@@ -353,9 +446,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     thr = mul(a.step_x, mul(a.data_factor, a.weight[v]));
     on = a.vmask[v] > 0.0f;
     bars[wo * 4 + ok] = bar;  // buffer 0
-    sent = send(0, bar);
+    if (a.n_iters > 0) sent = send(0, bar);
   }
-  exchange(0, sent);
+  if (a.n_iters > 0) exchange(0, sent);
 
   for (int it = 0; it < a.n_iters; ++it) {
     const int cur = it & 1;
@@ -435,11 +528,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       bars[((cur ^ 1) * VPC + wo) * 4 + ok] = bar;
       if (more) sent = send((it + 1) & 1, bar);
     }
-    if (more) {
-      exchange(it + 1, sent);
-    } else {
-      cluster.sync();  // A: no CTA leaves while another reads its bars
-    }
+    if (more) exchange(it + 1, sent);
+  }
+  cluster.sync();  // A: no CTA leaves while another reads its bars
+  // The end exchange of a ring that crosses processes: the flags of
+  // e = n_iters, no strips.
+  if (a.peer_ends != 0 && (rank == 0 || rank == C - 1) && threadIdx.x == 0) {
+    handshake(a.n_iters);
   }
 
   if (owner) {
@@ -535,21 +630,44 @@ extern "C" int halo_smoother_occupancy(int cluster, int vpw, int reach,
 // State (R, 128) with R = n * rb: x w1 w2 xb w1b w2b in/out, data weight
 // vmask in; slots (R * D, 128): nbr rowflag (int32) sdx sdy sal sbe sgn
 // srcf in, q1 q2 q3 in/out; rx (n, 2, 2, 3, reach, 128) and flags (n, 2)
-// scratch. n clusters of `cluster` CTAs, vpw vertices per warp, cover the
-// n partitions of rb rows, in one cooperative cluster launch. Returns the
-// cudaError_t of the launch.
+// the partitions' receive slots and epoch-counted flags; rx_lo / flags_lo
+// and rx_hi / flags_hi those of partition 0's left and partition n - 1's
+// right neighbour (all four null: the ring wraps onto this launch, rx and
+// flags as its ends). epoch: the sum of n_iters + 1 over the earlier
+// calls on these flags (0 on flags zeroed for this call). n clusters of
+// `cluster` CTAs, vpw vertices per warp, cover the n partitions of rb
+// rows, in one cooperative cluster launch. Returns the cudaError_t of the
+// launch.
 extern "C" int halo_smoother(
     float* x, float* w1, float* w2, float* xb, float* w1b, float* w2b,
     const float* data, const float* weight, const float* vmask,
     const int* nbr, const int* rowflag, const float* sdx, const float* sdy,
     const float* sal, const float* sbe, const float* sgn, const float* srcf,
-    float* q1, float* q2, float* q3, float* rx, int* flags, int n, int rb,
-    int d, int reach, int n_iters, int cluster, int vpw, float step_x,
+    float* q1, float* q2, float* q3, float* rx, int* flags, float* rx_lo,
+    int* flags_lo, float* rx_hi, int* flags_hi, int n, int rb, int d,
+    int reach, int n_iters, int epoch, int cluster, int vpw, float step_x,
     float step_q, float theta, float x_min, float x_max, float data_factor,
     void* stream) {
   const int nv = rb * kLanes, vpc = kWarps * vpw;
+  const bool wrap = rx_lo == nullptr && flags_lo == nullptr &&
+                    rx_hi == nullptr && flags_hi == nullptr;
+  if (!wrap && (rx_lo == nullptr || flags_lo == nullptr ||
+                rx_hi == nullptr || flags_hi == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* own_lo = rx + static_cast<size_t>(n - 1) * 4 * 3 * reach * kLanes;
+  if (wrap) {
+    rx_lo = own_lo;
+    flags_lo = flags + 2 * (n - 1);
+    rx_hi = rx;
+    flags_hi = flags;
+  }
+  // A one-rank group passes its own buffers as the ends.
+  const bool own_ends = rx_lo == own_lo && flags_lo == flags + 2 * (n - 1) &&
+                        rx_hi == rx && flags_hi == flags;
   if (n < 1 || rb < 1 || d < 1 || d > kMaxDegree || reach < 1 ||
-      rb < reach || n_iters < 0 || cluster < 1 || cluster > kMaxCluster ||
+      rb < reach || n_iters < 0 || epoch < 0 || cluster < 1 ||
+      cluster > kMaxCluster ||
       cluster * vpc < nv || (cluster - 1) * vpc >= nv ||
       2 * vpc + 2 * reach * kLanes > kOffMask + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -564,14 +682,13 @@ extern "C" int halo_smoother(
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n > held) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
 
-  const Args a{x,    w1,   w2,    xb,      w1b,    w2b,    data,   weight,
-               vmask, nbr, rowflag, sdx,   sdy,    sal,    sbe,    sgn,
-               srcf, q1,   q2,    q3,      rx,     flags,  n,      rb,
-               d,    reach, n_iters, step_x, step_q, theta, x_min, x_max,
-               data_factor};
+  const Args a{x,       w1,       w2,     xb,     w1b,     w2b,   data,
+               weight,  vmask,    nbr,    rowflag, sdx,    sdy,   sal,
+               sbe,     sgn,      srcf,   q1,     q2,      q3,    rx,
+               flags,   rx_lo,    flags_lo, rx_hi, flags_hi, n,   rb,
+               d,       reach,    n_iters, epoch, own_ends ? 0 : 1, step_x,
+               step_q,  theta,    x_min,  x_max,   data_factor};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = cudaMemsetAsync(flags, 0, sizeof(int) * 2 * n, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
   void* params[] = {const_cast<Args*>(&a)};
   cudaLaunchAttribute attrs[2];
   set_cluster(&attrs[0], cluster);
@@ -581,4 +698,52 @@ extern "C" int halo_smoother(
   e = cudaLaunchKernelExC(&cfg, k, params);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Receive slots and flags that ring neighbours in other processes map:
+// device memory of this process's current card outside any caching
+// allocator (a caching allocator's segment would export the handle of the
+// whole segment and lose the offset), zeroed before it is shared.
+extern "C" int halo_peer_alloc(size_t bytes, void** ptr) {
+  *ptr = nullptr;
+  cudaError_t e = cudaMalloc(ptr, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaMemset(*ptr, 0, bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return static_cast<int>(e);
+}
+
+// The IPC handle (CUDA_IPC_HANDLE_SIZE = 64 bytes) of an allocation of
+// halo_peer_alloc.
+extern "C" int halo_peer_handle(void* ptr, void* handle) {
+  cudaIpcMemHandle_t h;
+  const cudaError_t e = cudaIpcGetMemHandle(&h, ptr);
+  if (e == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  return static_cast<int>(e);
+}
+
+// Map another process's allocation from its handle (refused for one of
+// this process's own).
+extern "C" int halo_peer_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  *ptr = nullptr;
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int halo_peer_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+extern "C" int halo_peer_free(void* ptr) {
+  return static_cast<int>(cudaFree(ptr));
+}
+
+extern "C" int halo_peer_handle_size() {
+  return static_cast<int>(sizeof(cudaIpcMemHandle_t));
 }

@@ -11,6 +11,13 @@ are garbage that no edge reads), then runs the vertex-centric
 Chambolle-Pock step on its block. Each endpoint keeps its own copy of an
 edge's duals, so the halo is read-only.
 
+Over a process group (multihost.global_mesh) each rank holds the whole
+graph, iterates its own block, and sends its two boundary strips to its
+ring neighbours every iteration (sharding.ring_exchange: point-to-point
+messages, through host tensors under gloo with the state on the card);
+the blocks' outputs are all-gathered, so every rank returns the whole
+GraphState.
+
 This mode drops an edge whose endpoints lie more than `halo` RANKS apart
 (rank_layout); the banded halo kernel (halo_kernel.py) drops by ROW
 distance. Both rules are kept as the JAX package has them.
@@ -21,7 +28,9 @@ import torch
 from flame_tpu_torch.optimize import nltgv2
 from flame_tpu_torch.optimize.smoother_kernel import LANES, write_back
 from flame_tpu_torch.params import RegularizerParams
-from flame_tpu_torch.parallel.sharding import Mesh
+from flame_tpu_torch.parallel.sharding import (Mesh, block_slice,
+                                               gather_rows, grouped,
+                                               ring_exchange)
 
 
 def strip_width(v_cap: int, n_dev: int, reach: int) -> int:
@@ -96,11 +105,15 @@ def rank_layout(g: nltgv2.GraphState, perm, inv_perm, ranks_p, degree: int,
 
 
 def _iterate(p: RegularizerParams, n_iters: int, halo: int, n_dev: int,
-             vtx, slots):
+             vtx, slots, mesh: Mesh = None):
     """The n_iters iterations over (n_dev, Vb, ...) partitions; returns
     (x, w1, w2, x_bar, w1_bar, w2_bar) as (V,) and (q1, q2, q3) as
-    (V, D)."""
+    (V, D). Over a process group (mesh) vtx and slots are this rank's
+    block of Vb ranks, and so are the outputs."""
     V, D = slots[0].shape
+    first = 0
+    if grouped(mesh):
+        first, n_dev = mesh.first_block, 1
     Vb = V // n_dev
     dev = slots[0].device
     x, w1, w2, xb, w1b, w2b, data, weight, vmaskf = (
@@ -112,15 +125,19 @@ def _iterate(p: RegularizerParams, n_iters: int, halo: int, n_dev: int,
     vmask = vmaskf > 0.0
     wgt = p.data_factor * weight
     # Index of each slot's neighbour in its partition's extended block.
-    block_start = (torch.arange(n_dev, device=dev) * Vb)[:, None, None]
+    block_start = ((first + torch.arange(n_dev, device=dev))
+                   * Vb)[:, None, None]
     nbr_ext = torch.clamp(nbr - block_start + halo, 0, Vb + 2 * halo - 1)
     part = torch.arange(n_dev, device=dev)[:, None, None]
 
     def extend(VB):
         """(n, Vb, 3) -> (n, Vb + 2 * halo, 3): partition i gets the last
         halo ranks of i - 1 and the first halo ranks of i + 1 (ring)."""
-        left = torch.roll(VB[:, -halo:], 1, dims=0)
-        right = torch.roll(VB[:, :halo], -1, dims=0)
+        if grouped(mesh):
+            left, right = ring_exchange(mesh, VB[:, :halo], VB[:, -halo:])
+        else:
+            left = torch.roll(VB[:, -halo:], 1, dims=0)
+            right = torch.roll(VB[:, :halo], -1, dims=0)
         return torch.cat([left, VB, right], dim=1)
 
     q = (q1, q2, q3)
@@ -145,8 +162,8 @@ def halo_smooth(p: RegularizerParams, g: nltgv2.GraphState, perm, inv_perm,
     """n_iters vertex-partitioned iterations over the mesh's partitions.
     perm / inv_perm / ranks_p come from smoother_kernel.rcm_order and
     perm_edge_ranks. V must divide into mesh.size blocks of at least
-    `halo` ranks."""
-    mesh.require_one_card("halo_smooth")
+    `halo` ranks. Over a process group every rank passes the whole graph
+    and gets the whole result."""
     V = g.x.shape[0]
     n_dev = mesh.size
     if V % n_dev:
@@ -160,5 +177,11 @@ def halo_smooth(p: RegularizerParams, g: nltgv2.GraphState, perm, inv_perm,
                          f"{mesh.device}")
     vtx, slots, src_slot, alive = rank_layout(g, perm, inv_perm, ranks_p,
                                               degree, halo)
-    outs = _iterate(p, n_iters, halo, n_dev, vtx, slots)
+    if grouped(mesh):
+        rows = block_slice(V, mesh)
+        outs = gather_rows(mesh, *_iterate(
+            p, n_iters, halo, n_dev, [a[rows] for a in vtx],
+            [a[rows] for a in slots], mesh))
+    else:
+        outs = _iterate(p, n_iters, halo, n_dev, vtx, slots)
     return write_back(g, outs, inv_perm, src_slot, alive)

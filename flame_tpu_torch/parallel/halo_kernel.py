@@ -16,6 +16,18 @@ For tensors on the CPU the iterations run the plain version
 (iterate_plain). For CUDA tensors csrc/halo_smoother.cu runs all
 iterations of all partitions in one launch, a thread-block cluster per
 partition (launch_plan), or the call raises; there is no fallback.
+
+Over a process group (multihost.global_mesh) each rank launches the
+kernel over its own block of rows, and the ring crosses ranks at the
+block's ends: every rank allocates the receive slots and flags of its
+partitions itself (halo_peer_alloc, once per shape and group, _PeerRing),
+the ranks exchange their CUDA IPC handles with one all-gather, and each
+maps its two ring neighbours' buffers; the kernel stores its boundary
+strips and raises its flags there. The flags are epoch-counted across
+calls, never reset (csrc/halo_smoother.cu). release_peer_buffers (called
+by multihost.shutdown) frees them. The plain version runs over a group
+too, its strips through sharding.ring_exchange. smooth_sharded gathers
+every rank's outputs, so each rank returns the whole GraphState.
 """
 
 import ctypes
@@ -23,6 +35,7 @@ import functools
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from flame_tpu_torch import _kernels
 from flame_tpu_torch.optimize import nltgv2
@@ -30,7 +43,9 @@ from flame_tpu_torch.optimize.smoother_kernel import (LANES, _rows,
                                                       build_layout,
                                                       write_back)
 from flame_tpu_torch.params import RegularizerParams
-from flame_tpu_torch.parallel.sharding import Mesh
+from flame_tpu_torch.parallel.sharding import (Mesh, block_slice,
+                                               gather_rows, grouped,
+                                               ring_exchange)
 
 KERNEL = "halo_smoother"
 # The kernel's compile-time shape (csrc/halo_smoother.cu): CTAs of 32
@@ -148,15 +163,19 @@ def _check_blocks(R: int, n: int, reach: int):
 
 
 def iterate_plain(p: RegularizerParams, n_iters: int, degree: int,
-                  reach: int, n: int, vtx, slots):
+                  reach: int, n: int, vtx, slots, mesh: Mesh = None):
     """The plain version of the kernel: n_iters iterations of every
     partition over (n, Rb + 2 * reach, 128) extended bar state
     (pallas_halo._halo_kernel of the JAX package). vtx / slots as
     BandedLayout's; returns (x, w1, w2, x_bar, w1_bar, w2_bar) as
-    (R, 128) and (q1, q2, q3) as (R * D, 128)."""
+    (R, 128) and (q1, q2, q3) as (R * D, 128). Over a process group
+    (mesh) vtx and slots are this rank's block, its one partition, and so
+    are the outputs; the strips travel through sharding.ring_exchange."""
     R = vtx[0].shape[0]
     D = degree
     r = reach
+    if grouped(mesh):
+        n = 1
     _check_blocks(R, n, r)
     Rb = R // n
     x, w1, w2, xb, w1b, w2b, data, weight, vmaskf = (
@@ -195,8 +214,12 @@ def iterate_plain(p: RegularizerParams, n_iters: int, degree: int,
     be[2, :, r:Rb + r] = w2b
     q = (q1, q2, q3)
     for _ in range(n_iters):
-        be[:, :, :r] = torch.roll(be[:, :, Rb:Rb + r], 1, dims=1)
-        be[:, :, Rb + r:] = torch.roll(be[:, :, r:2 * r], -1, dims=1)
+        if grouped(mesh):
+            be[:, :, :r], be[:, :, Rb + r:] = ring_exchange(
+                mesh, be[:, :, r:2 * r], be[:, :, Rb:Rb + r])
+        else:
+            be[:, :, :r] = torch.roll(be[:, :, Rb:Rb + r], 1, dims=1)
+            be[:, :, Rb + r:] = torch.roll(be[:, :, r:2 * r], -1, dims=1)
         q, d = nltgv2.slot_step(
             p, is_src, sdx, sdy, sal, sbe, sgn,
             [rep(v[:, r:Rb + r]) for v in be], [nbr_read(v) for v in be], q)
@@ -210,6 +233,98 @@ def iterate_plain(p: RegularizerParams, n_iters: int, degree: int,
             + tuple(a.reshape(R * D, LANES) for a in q))
 
 
+class _PeerRing:
+    """The receive slots (parts, 2, 2, 3, reach, 128) f32 and flags
+    (parts, 2) i32 of this rank's partitions, in one zeroed cudaMalloc
+    allocation, and the addresses of the two ring neighbours' (the
+    previous rank's last partition and the next rank's first), mapped
+    from their IPC handles. epoch: the sum of n_iters + 1 over the calls
+    made on these flags."""
+
+    def __init__(self, mesh: Mesh, device: torch.device, parts: int,
+                 reach: int):
+        lib = _kernels.load()
+        self.device = device
+        slot_bytes = 4 * 3 * reach * LANES * 4  # a partition's 4 strips
+        self.rx_bytes = parts * slot_bytes
+        self.base = ctypes.c_void_p()
+        self.opened = {}  # peer rank -> mapped address
+        self.epoch = 0
+        hs = lib.halo_peer_handle_size()
+        with torch.cuda.device(device):
+            _kernels.check_cuda_error(lib.halo_peer_alloc(
+                self.rx_bytes + 8 * parts, ctypes.byref(self.base)), KERNEL)
+            handle = (ctypes.c_char * hs)()
+            _kernels.check_cuda_error(
+                lib.halo_peer_handle(self.base, handle), KERNEL)
+            # One all-gather of (handle bytes, partition count) per rank.
+            mine = torch.frombuffer(bytearray(bytes(handle)
+                                              + parts.to_bytes(8, "little")),
+                                    dtype=torch.uint8)
+            table = gather_rows(mesh, mine[None].to(device)).cpu()
+            n, r = mesh.size, mesh.first_block
+
+            def peer(k):  # (base address, partitions) of rank k's buffer
+                if k == r:
+                    return self.base.value, parts
+                if k not in self.opened:
+                    ptr = ctypes.c_void_p()
+                    _kernels.check_cuda_error(lib.halo_peer_open(
+                        bytes(table[k, :hs].numpy()), ctypes.byref(ptr)),
+                        KERNEL)
+                    self.opened[k] = ptr.value
+                return self.opened[k], int.from_bytes(
+                    bytes(table[k, hs:].numpy()), "little")
+            lo, lo_parts = peer((r - 1) % n)
+            hi, hi_parts = peer((r + 1) % n)
+        # A buffer's flags follow its slots.
+        self.rx = self.base.value
+        self.flags = self.base.value + self.rx_bytes
+        self.rx_lo = lo + (lo_parts - 1) * slot_bytes
+        self.flags_lo = lo + lo_parts * slot_bytes + 8 * (lo_parts - 1)
+        self.rx_hi = hi
+        self.flags_hi = hi + hi_parts * slot_bytes
+
+    def close(self, lib):
+        with torch.cuda.device(self.device):
+            for ptr in self.opened.values():
+                _kernels.check_cuda_error(lib.halo_peer_close(
+                    ctypes.c_void_p(ptr)), KERNEL)
+            self.opened = {}
+
+    def free(self, lib):
+        with torch.cuda.device(self.device):
+            _kernels.check_cuda_error(lib.halo_peer_free(self.base), KERNEL)
+
+
+# (group, device index, partitions, reach) -> _PeerRing of this process.
+_PEER_RINGS = {}
+
+
+def _peer_ring(mesh: Mesh, dev: torch.device, parts: int,
+               reach: int) -> _PeerRing:
+    key = (mesh.group, dev.index, parts, reach)
+    ring = _PEER_RINGS.get(key)
+    if ring is None:
+        ring = _PEER_RINGS[key] = _PeerRing(mesh, dev, parts, reach)
+    return ring
+
+
+def release_peer_buffers(group) -> None:
+    """Free the peer buffers of the group's rings: every rank closes the
+    neighbours' mappings, then (after a barrier of the group) frees its
+    own. Every rank of the group calls it, or none."""
+    rings = [k for k in _PEER_RINGS if k[0] is group]
+    if not rings:
+        return
+    lib = _kernels.load()
+    for k in rings:
+        _PEER_RINGS[k].close(lib)
+    dist.barrier(group=group)
+    for k in rings:
+        _PEER_RINGS.pop(k).free(lib)
+
+
 def _check(name, t, shape, dtype, device):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
@@ -219,16 +334,20 @@ def _check(name, t, shape, dtype, device):
 
 
 def iterate(p: RegularizerParams, n_iters: int, degree: int, reach: int,
-            n: int, vtx, slots):
+            n: int, vtx, slots, mesh: Mesh = None):
     """n_iters iterations over n partitions; same contract as
     iterate_plain. On CUDA tensors: one launch of the halo kernel, a
     cluster per partition (_plan), raising where the card cannot hold
-    every cluster at once."""
+    every cluster at once. Over a process group (mesh) vtx and slots are
+    this rank's block: one launch over it, its ring's ends in the
+    neighbour ranks' peer buffers (_PeerRing)."""
     dev = vtx[0].device
     if dev.type == "cpu":
-        return iterate_plain(p, n_iters, degree, reach, n, vtx, slots)
+        return iterate_plain(p, n_iters, degree, reach, n, vtx, slots, mesh)
     if dev.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {dev}")
+    if grouped(mesh):
+        n = 1
     R = vtx[0].shape[0]
     D = degree
     f32, i32 = torch.float32, torch.int32
@@ -244,17 +363,27 @@ def iterate(p: RegularizerParams, n_iters: int, degree: int, reach: int,
     parts = plan.clusters  # the kernel's ring: n * splits partitions
     # The kernel updates its state in place: work on copies.
     state = [t.clone() for t in vtx[:6]] + [t.clone() for t in slots[8:]]
-    rx = torch.empty((parts, 2, 2, 3, reach, LANES), dtype=f32, device=dev)
-    flags = torch.empty((parts, 2), dtype=i32, device=dev)
+    if grouped(mesh):
+        ring = _peer_ring(mesh, dev, parts, reach)
+        epoch = ring.epoch
+        ring.epoch += n_iters + 1
+        buffers = (ring.rx, ring.flags, ring.rx_lo, ring.flags_lo,
+                   ring.rx_hi, ring.flags_hi)
+    else:
+        # This launch's own ring: flags zeroed for it, epoch 0.
+        rx = torch.empty((parts, 2, 2, 3, reach, LANES), dtype=f32,
+                         device=dev)
+        flags = torch.zeros((parts, 2), dtype=i32, device=dev)
+        epoch = 0
+        buffers = (rx.data_ptr(), flags.data_ptr(), None, None, None, None)
     err = _kernels.load().halo_smoother(
         *(t.data_ptr() for t in state[:6]),
         *(t.data_ptr() for t in vtx[6:]),
         *(t.data_ptr() for t in slots[:8]),
         *(t.data_ptr() for t in state[6:]),
-        rx.data_ptr(), flags.data_ptr(), parts, R // parts, D, reach,
-        n_iters, plan.cluster, plan.vertices_per_warp,
-        p.step_x, p.step_q, p.theta, p.x_min, p.x_max, p.data_factor,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *buffers, parts, R // parts, D, reach, n_iters, epoch, plan.cluster,
+        plan.vertices_per_warp, p.step_x, p.step_q, p.theta, p.x_min,
+        p.x_max, p.data_factor, torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check_cuda_error(err, KERNEL)
     _kernels.LAUNCHES[KERNEL] += 1
     return tuple(state)
@@ -266,13 +395,23 @@ def smooth_sharded(p: RegularizerParams, g: nltgv2.GraphState, perm,
     """The banded layout of g, n_iters iterations over mesh.size
     partitions (the kernel on the card), and the write-back; the same
     GraphState contract as smoother_kernel.smooth. perm / inv_perm /
-    ranks_p from smoother_kernel.rcm_order and perm_edge_ranks."""
-    mesh.require_one_card("smooth_sharded")
+    ranks_p from smoother_kernel.rcm_order and perm_edge_ranks. Over a
+    process group every rank passes the whole graph, iterates its own
+    block of rows, and returns the whole result (the blocks'
+    outputs all-gathered)."""
     V = g.x.shape[0]
-    _check_blocks(_rows(V), mesh.size, reach)
+    R = _rows(V)
+    _check_blocks(R, mesh.size, reach)
     if g.x.device != mesh.device:
         raise ValueError(f"{KERNEL}: graph on {g.x.device}, mesh on "
                          f"{mesh.device}")
     lay = build_layout(g, perm, inv_perm, ranks_p, degree, reach)
-    outs = iterate(p, n_iters, degree, reach, mesh.size, lay.vtx, lay.slots)
+    if grouped(mesh):
+        rows, slot_rows = block_slice(R, mesh), block_slice(R * degree, mesh)
+        outs = gather_rows(mesh, *iterate(
+            p, n_iters, degree, reach, 1, [a[rows] for a in lay.vtx],
+            [a[slot_rows] for a in lay.slots], mesh))
+    else:
+        outs = iterate(p, n_iters, degree, reach, mesh.size, lay.vtx,
+                       lay.slots)
     return write_back(g, outs, inv_perm, lay.src_slot, lay.alive)

@@ -3,12 +3,20 @@
 Counterpart of flame_tpu/parallel/multihost.py. Every process runs the
 same program: initialize() once at startup joins the process group
 (NCCL on the card, gloo on the CPU); global_mesh() is then the mesh with
-one partition per rank, over which sharding.sharded_smooth and
-distributed_ba.solve_window_sharded run unchanged, their psums becoming
-all-reduces over the group. Nothing on a machine tells a program of its
-cluster, so the coordinator's address, the number of processes and this
-process's rank are given, and a failed initialization raises: there is
-no single-process fallback.
+one partition per rank, over which sharding.sharded_smooth,
+distributed_ba.solve_window_sharded, the halo smoothers,
+sharding.sharded_update_step and orchestrator.ShardedFlame run, their
+psums becoming all-reduces and their halo strips point-to-point messages
+over the group. Nothing on a machine tells a program of its cluster, so
+the coordinator's address, the number of processes and this process's
+rank are given, and a failed initialization raises: there is no
+single-process fallback.
+
+NCCL refuses two ranks on one card, so several ranks that share a card
+join a gloo group and take global_mesh(device="cuda"): their compute
+stays on the card and their collectives move through host tensors
+(sharding.Mesh.staged). shutdown() frees the halo kernel's peer buffers
+and leaves the group.
 """
 
 from typing import Optional, Sequence
@@ -35,16 +43,29 @@ def initialize(coordinator_address: str, num_processes: int,
         world_size=num_processes, rank=process_id)
 
 
-def _device() -> torch.device:
-    if dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _device(device=None) -> torch.device:
+    """The mesh's device: the backend's own (NCCL: this process's card;
+    gloo: the CPU) unless given. NCCL carries card tensors only; gloo
+    carries the CPU's, and a card's through host copies."""
+    backend = dist.get_backend()
+    if device is None:
+        if backend == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.type not in ("cpu", "cuda") or (backend == "nccl"
+                                          and dev.type != "cuda"):
+        raise ValueError(f"a {backend} group cannot carry tensors on {dev}")
+    return dev
 
 
-def global_mesh(axis: str = AXIS) -> Mesh:
+def global_mesh(axis: str = AXIS, device=None) -> Mesh:
     """The 1-D mesh over every process of the group, one partition each,
-    in rank order."""
-    return Mesh((_device(),), axis, group=dist.group.WORLD)
+    in rank order, on device (by default the backend's own, see
+    _device)."""
+    return Mesh((_device(device),), axis, group=dist.group.WORLD)
 
 
 def grid_mesh(shape: Sequence[int], axes: Sequence[str]):
@@ -58,3 +79,12 @@ def grid_mesh(shape: Sequence[int], axes: Sequence[str]):
 
 def is_coordinator() -> bool:
     return dist.get_rank() == 0
+
+
+def shutdown() -> None:
+    """Free the halo kernel's peer buffers of the group (each rank closes
+    its neighbours' handles before any rank frees its own) and destroy
+    the process group."""
+    from flame_tpu_torch.parallel import halo_kernel
+    halo_kernel.release_peer_buffers(dist.group.WORLD)
+    dist.destroy_process_group()

@@ -10,11 +10,21 @@ warning). With do_ba, every bundle adjustment solve takes the
 observation-sharded assembly over the mesh (parallel/distributed_ba.py)
 and applies at once, as the JAX package routes it (_ba_mesh).
 
-The mesh is n partitions of one card (parallel/sharding.py), so the
-pipeline state stays on that card. A mesh over a process group raises
-NotImplementedError: the JAX package's NamedSharding placement of the
-feature and graph state over several chips, and the halo strips between
-them, are the multi-card transport (ROADMAP section 1 item 6.1).
+The mesh takes either form of parallel/sharding.py. On n partitions of
+one card the pipeline state stays whole on that card. Over a process
+group (multihost.global_mesh(), one rank per card, the form in which
+several cards run) the state is placed as the JAX package's
+NamedShardings place it (flame_tpu/parallel/orchestrator.py:100-113):
+each rank holds only its block of the feature-indexed state (_feats,
+_curr, _vtx_idepths, _vtx_normals) and of the graph's vertex- and
+edge-indexed leaves, capacity / mesh.size rows of each; every rank holds
+the frames, the poseframe stack, the dense maps and the triangles whole.
+core/flame.py gathers the blocks where a stage reads the whole state,
+the halo smoothers send their strips between ranks (K3 through CUDA IPC
+peer buffers), and utils/checkpoint.py gathers on save and puts the
+blocks back on load. Every rank runs the same update() calls. The
+batched step (frame_batch > 1) over a group is not ported yet (ROADMAP
+section 1 item 6.5) and raises NotImplementedError.
 """
 
 import dataclasses
@@ -24,19 +34,20 @@ from typing import Optional
 from flame_tpu_torch.core.flame import Flame
 from flame_tpu_torch.optimize.smoother_kernel import LANES
 from flame_tpu_torch.params import Params
-from flame_tpu_torch.parallel.sharding import Mesh, make_mesh
+from flame_tpu_torch.parallel.sharding import (Mesh, grouped, make_mesh,
+                                               shard_rows)
 
 
 class ShardedFlame(Flame):
     """Flame whose smoother runs over the partitions of `mesh` (by
-    default one partition of `device`)."""
+    default one partition of `device`); over a process group, with the
+    feature and graph state placed in blocks over the ranks."""
 
     def __init__(self, width: int, height: int, K, Kinv,
                  params: Optional[Params] = None,
                  mesh: Optional[Mesh] = None, *, device="cuda"):
         own = make_mesh(1, device)
         mesh = mesh if mesh is not None else own
-        mesh.require_one_card("ShardedFlame")
         if mesh.device != own.device:
             raise ValueError(f"ShardedFlame: mesh on {mesh.device}, "
                              f"device {own.device}")
@@ -48,6 +59,11 @@ class ShardedFlame(Flame):
         if params.feature_capacity % n or params.edge_capacity % n:
             raise ValueError("feature/edge capacity must divide into the "
                              f"mesh's {n} partitions")
+        if grouped(mesh) and params.solver.frame_batch > 1:
+            raise NotImplementedError(
+                "ShardedFlame: the batched step (frame_batch > 1) over a "
+                "process group is not ported yet (ROADMAP section 1 item "
+                "6.5); use frame_batch=1")
         mode = params.solver.smoother
         if mode in ("auto", "pallas"):
             if mode == "pallas":
@@ -70,3 +86,14 @@ class ShardedFlame(Flame):
                     f"feature_capacity or use fewer partitions or a "
                     f"smaller reach")
         super().__init__(width, height, K, Kinv, params, device=mesh.device)
+
+    def clear(self):
+        """Flame.clear, then this rank's blocks of the feature and graph
+        state over a process group."""
+        super().clear()
+        m = self.mesh
+        if grouped(m):
+            (self._feats, self._curr, self._graph, self._vtx_idepths,
+             self._vtx_normals) = (shard_rows(a, m) for a in (
+                self._feats, self._curr, self._graph, self._vtx_idepths,
+                self._vtx_normals))

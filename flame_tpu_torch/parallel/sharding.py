@@ -1,4 +1,5 @@
-"""The partition mesh, the edge-sharded smoother and the sharded update step.
+"""The partition mesh, the placement helpers, the edge-sharded smoother
+and the sharded update step.
 
 Counterpart of flame_tpu/parallel/sharding.py. The JAX package's mesh is
 a row of chips; the port's Mesh takes one of two forms:
@@ -10,21 +11,29 @@ a row of chips; the port's Mesh takes one of two forms:
     and the plain "halo" smoother shifts strips along the partition axis
     (parallel/halo.py).
   * one partition per process of a torch.distributed group
-    (parallel/multihost.global_mesh): psum sums the process's partition,
-    then all-reduces over the group (NCCL on the card, gloo on the CPU).
-    Every process holds the whole graph or window, as every JAX process
-    does, and computes its own block.
+    (parallel/multihost.global_mesh), the form in which several cards
+    run: one rank per card, NCCL between them (gloo on the CPU, or for
+    several ranks on one card). psum sums the process's partition, then
+    all-reduces over the group. The placement helpers stand in for the
+    JAX package's NamedSharding: shard_rows takes this rank's block of a
+    state along its capacity axis, gather_rows all-gathers the blocks
+    back into the whole state in rank order. The halo smoothers send
+    their boundary strips to the ring neighbours with point-to-point
+    messages (ring_exchange; K3 stores them into the neighbours' receive
+    slots itself), and ShardedFlame (parallel/orchestrator.py) keeps
+    only the rank's block of the feature and graph state.
 
 On either form: sharded_smooth splits the NLTGV2 edge rows into
 contiguous blocks with one (V, 3) psum per iteration and a replicated
 vertex update (the JAX package's "edge" smoother), and
 sharded_update_step runs tracking on contiguous feature blocks and then
-the edge, halo or halo-kernel smoother. The halo smoothers, ShardedFlame
-and sharded_update_step need the one-card form: placing the feature and
-graph state, and the halo strips, across cards is the multi-card
-transport (ROADMAP section 1 item 6.1), and they raise
-NotImplementedError for a group. A mesh whose entries name different
-cards raises NotImplementedError for the same reason.
+the edge, halo or halo-kernel smoother. A mesh whose entries name
+different cards in one process raises NotImplementedError: several cards
+run as a process group.
+
+Under a gloo group whose tensors lie on the card, every collective and
+every strip moves through host tensors (gloo carries CPU tensors); the
+compute stays on the card.
 """
 
 import dataclasses
@@ -52,9 +61,8 @@ def _canonical(device) -> torch.device:
     return dev
 
 
-MULTI_CARD = ("the multi-card transport (ROADMAP section 1 item 6.1: K3's "
-              "strips and ShardedFlame's feature and graph state across "
-              "cards)")
+MULTI_CARD = ("several cards run as a process group, one rank per card: "
+              "multihost.initialize, then multihost.global_mesh()")
 
 
 @dataclass(frozen=True)
@@ -75,8 +83,8 @@ class Mesh:
             raise ValueError("a mesh needs at least one partition")
         if len(set(devs)) > 1:
             raise NotImplementedError(
-                f"a mesh over several devices needs {MULTI_CARD}, got "
-                f"{sorted(str(d) for d in set(devs))}")
+                f"a mesh of one process lies on one device, got "
+                f"{sorted(str(d) for d in set(devs))}; {MULTI_CARD}")
         if self.group is not None and len(devs) != 1:
             raise ValueError("a mesh over a process group holds one "
                              f"partition per rank, got {len(devs)}")
@@ -104,10 +112,12 @@ class Mesh:
         """Partitions this process computes."""
         return len(self.devices)
 
-    def require_one_card(self, what: str) -> None:
-        if self.group is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh over a process group needs {MULTI_CARD}")
+    @property
+    def staged(self) -> bool:
+        """True where the group's collectives take host tensors although
+        the mesh lies on the card (gloo)."""
+        return (self.group is not None and self.device.type == "cuda"
+                and dist.get_backend(self.group) == "gloo")
 
 
 def make_mesh(n: int = 1, device="cuda") -> Mesh:
@@ -125,8 +135,9 @@ def psum(parts, mesh: Mesh) -> torch.Tensor:
     for part in parts[1:]:
         out = out + part
     if mesh.group is not None:
-        out = out.clone() if len(parts) == 1 else out
+        out = _to_wire(out.clone() if len(parts) == 1 else out, mesh)
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        out = out.to(mesh.device)
     return out
 
 
@@ -200,10 +211,145 @@ def sharded_smooth(p: RegularizerParams, g: nltgv2.GraphState, n_iters: int,
     return nltgv2.stacked_result(g, x, w1, w2, VB, q)
 
 
+# ---------------------------------------------------------------------------
+# Placement over a process group: the counterpart of NamedSharding.
+# ---------------------------------------------------------------------------
+
+
+def _to_wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """t as the group's collectives take it: a host copy under a staged
+    (gloo, card) mesh, else t itself."""
+    return t.cpu() if mesh.staged else t
+
+
 def _all_gather(block: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' blocks concatenated in rank order, on mesh.device."""
+    block = _to_wire(block.contiguous(), mesh)
     parts = [torch.empty_like(block) for _ in range(mesh.size)]
-    dist.all_gather(parts, block.contiguous(), group=mesh.group)
-    return torch.cat(parts)
+    dist.all_gather(parts, block, group=mesh.group)
+    return torch.cat(parts).to(mesh.device)
+
+
+def grouped(mesh: Optional[Mesh]) -> bool:
+    """True for a mesh over a process group."""
+    return mesh is not None and mesh.group is not None
+
+
+def _leaves(state):
+    """(names, values) of a dataclass, a NamedTuple or a tensor (one
+    leaf named None)."""
+    if isinstance(state, torch.Tensor):
+        return [None], [state]
+    if dataclasses.is_dataclass(state):
+        names = [f.name for f in dataclasses.fields(state)]
+    else:
+        names = list(state._fields)
+    return names, [getattr(state, k) for k in names]
+
+
+def _rebuild(state, names, values):
+    if isinstance(state, torch.Tensor):
+        return values[0]
+    kw = dict(zip(names, values))
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **kw)
+    return state._replace(**kw)
+
+
+def block_slice(length: int, mesh: Mesh) -> slice:
+    """This rank's rows of a capacity axis of `length` rows."""
+    if length % mesh.size:
+        raise ValueError(f"a capacity of {length} rows does not divide "
+                         f"into the mesh's {mesh.size} partitions")
+    b = length // mesh.size
+    return slice(mesh.first_block * b, (mesh.first_block + 1) * b)
+
+
+def shard_rows(state, mesh: Optional[Mesh]):
+    """This rank's block of every leaf of state (a dataclass such as
+    FeatureState or GraphState, a NamedTuple or a tensor) along its
+    leading capacity axis, as its own storage; None leaves stay None.
+    The whole state on a mesh of one process."""
+    if not grouped(mesh):
+        return state
+    names, vals = _leaves(state)
+    return _rebuild(state, names, [
+        None if v is None else v[block_slice(v.shape[0], mesh)].clone()
+        for v in vals])
+
+
+def gather_rows(mesh: Optional[Mesh], *states):
+    """The whole states from every rank's block (shard_rows' inverse), in
+    rank order, so that the slots keep their order. One all-gather per
+    leading block size: the leaves of that size travel as one byte
+    tensor. Returns one state for one argument, else a tuple. The states
+    themselves on a mesh of one process."""
+    if not grouped(mesh):
+        return states[0] if len(states) == 1 else states
+    flat = [_leaves(s) for s in states]
+    by_rows = {}
+    for i, (_, vals) in enumerate(flat):
+        for j, v in enumerate(vals):
+            if v is not None:
+                by_rows.setdefault(v.shape[0], []).append((i, j))
+    out = [list(vals) for _, vals in flat]
+    for rows, where in by_rows.items():
+        cols = [flat[i][1][j].contiguous().reshape(rows, -1)
+                .view(torch.uint8) for i, j in where]
+        whole = _all_gather(torch.cat(cols, 1), mesh)
+        at = 0
+        for (i, j), c in zip(where, cols):
+            v = flat[i][1][j]
+            out[i][j] = whole[:, at:at + c.shape[1]].contiguous() \
+                .view(v.dtype).reshape((mesh.size * rows,) + v.shape[1:])
+            at += c.shape[1]
+    got = tuple(_rebuild(s, names, vals)
+                for s, (names, _), vals in zip(states, flat, out))
+    return got[0] if len(got) == 1 else got
+
+
+def agree(flag: bool, mesh: Optional[Mesh]) -> bool:
+    """The coordinator's flag on every rank (a decision that depends on
+    timing, such as whether a copy has landed, taken once for the group
+    so that every rank issues the same collectives); flag itself on a
+    mesh of one process."""
+    if not grouped(mesh):
+        return flag
+    t = _to_wire(torch.tensor([int(flag)], dtype=torch.int32,
+                              device=mesh.device), mesh)
+    dist.broadcast(t, src=dist.get_global_rank(mesh.group, 0),
+                   group=mesh.group)
+    return bool(t.item())
+
+
+def ring_exchange(mesh: Mesh, to_left: torch.Tensor,
+                  to_right: torch.Tensor):
+    """One halo exchange over the group's ring: this rank sends to_left
+    to its left neighbour and to_right to its right one, and returns
+    (from_left, from_right): the left neighbour's to_right and the right
+    neighbour's to_left (the JAX package's two ppermutes). Point-to-point
+    through dist.batch_isend_irecv; under a staged mesh through host
+    tensors. On a group of one rank the ring wraps onto the rank itself."""
+    n = mesh.size
+    if n == 1:
+        return to_right.clone(), to_left.clone()
+    r = mesh.first_block
+    g = mesh.group
+    left = dist.get_global_rank(g, (r - 1) % n)
+    right = dist.get_global_rank(g, (r + 1) % n)
+    sl = _to_wire(to_left.contiguous(), mesh)
+    sr = _to_wire(to_right.contiguous(), mesh)
+    from_left = torch.empty_like(sr)
+    from_right = torch.empty_like(sl)
+    # Tag 0 travels leftwards, tag 1 rightwards; at two ranks both
+    # neighbours are one peer, and its messages match in this order.
+    ops = [dist.P2POp(dist.isend, sl, left, g, 0),
+           dist.P2POp(dist.isend, sr, right, g, 1),
+           dist.P2POp(dist.irecv, from_right, right, g, 0),
+           dist.P2POp(dist.irecv, from_left, left, g, 1)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return from_left.to(mesh.device), from_right.to(mesh.device)
 
 
 # ---------------------------------------------------------------------------
@@ -236,11 +382,15 @@ def sharded_update_step(params: Params, mesh: Mesh, smoother: str = "edge"):
     sharded_smooth; "halo" (halo.halo_smooth, strips of halo.strip_width
     ranks) and "pallas_halo" (the halo kernel K3) take the RCM order and
     RCM-order edge ranks as the trailing arguments (see parallel/halo.py).
-    The feature and edge capacities must divide into the partitions."""
+    The feature and edge capacities must divide into the partitions.
+
+    Over a process group, feats is this rank's block (shard_rows) and
+    feats', curr and member are its block too; stats are all-reduced over
+    the group. The graph is whole on every rank, and so is graph': each
+    smoother gathers its partitions' outputs."""
     # Imported here: core/pipeline.py imports this module.
     from flame_tpu_torch.core import pipeline
     from flame_tpu_torch.parallel import halo, halo_kernel
-    mesh.require_one_card("sharded_update_step")
     if smoother not in ("edge", "halo", "pallas_halo"):
         raise ValueError(f"unknown sharded smoother {smoother!r}; one of "
                          "('edge', 'halo', 'pallas_halo')")
@@ -255,6 +405,15 @@ def sharded_update_step(params: Params, mesh: Mesh, smoother: str = "edge"):
     reach = params.solver.pallas_reach
 
     def tracked(K, Kinv, stack, feats, fnew, curr_pf_slot):
+        if grouped(mesh):
+            if feats.valid.shape[0] != N // n:
+                raise ValueError(
+                    f"sharded_update_step: over a process group feats is "
+                    f"the rank's block of {N // n} rows, got "
+                    f"{feats.valid.shape[0]}")
+            f2, curr, member, stats, _ = pipeline.track_project_sync(
+                params, K, Kinv, stack, feats, fnew, curr_pf_slot)
+            return f2, curr, member, psum([stats], mesh)
         outs = [pipeline.track_project_sync(
             params, K, Kinv, stack, _rows(feats, slice(b * N // n,
                                                        (b + 1) * N // n)),

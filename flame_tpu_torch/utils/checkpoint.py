@@ -17,6 +17,13 @@ counters and bookkeeping. Not saved: CUDA graphs of the BA solve (built
 again at the first solve after load) and transfers in flight. Transfers
 queued on the instance that load() overwrites cannot be cancelled; they
 become zombies, counted in flight until they land, as after clear().
+
+A ShardedFlame over a process group (parallel/orchestrator.py) is saved
+and loaded by every rank: save gathers the ranks' blocks of the feature
+and graph state and the coordinator writes the one npz (the other ranks
+wait for it); load reads the file on every rank, so the path must be
+visible to each, and puts each rank's blocks back on it, restoring the
+placements (flame_tpu/utils/checkpoint.py's put()).
 """
 
 import dataclasses
@@ -26,11 +33,15 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flame_tpu_torch.core import frame as frame_mod
+from flame_tpu_torch.parallel import sharding
 
 # Fields of a host topology tuple (Flame._host_triangulate's result).
 _TOPO_FIELDS = ("tris", "edges", "ranks", "perm")
+# The state a process-group ShardedFlame holds in blocks.
+_BLOCKED = ("feats", "curr", "graph", "vtx_idepths", "vtx_normals")
 
 
 def _quiesce(fl) -> None:
@@ -75,12 +86,18 @@ def save(path: str, fl) -> None:
     if fl._tri_pending is not None or fl._packed_queue:
         raise RuntimeError("checkpoint.save: the pipeline did not come to "
                            "rest")
+    mesh = fl._sharding_mesh
+    whole = {k: getattr(fl, f"_{k}") for k in _BLOCKED}
+    whole = dict(zip(whole, sharding.gather_rows(mesh, *whole.values())))
+
+    def get(name):
+        return whole[name] if name in whole else getattr(fl, f"_{name}")
     arrays: Dict[str, np.ndarray] = {}
     for name in ("feats", "curr", "graph", "stack"):
-        _put_fields(arrays, name, getattr(fl, f"_{name}"))
+        _put_fields(arrays, name, get(name))
     for name in ("tris", "tri_validity", "vtx_idepths", "vtx_normals",
                  "idepthmap", "graph_scale", "last_stats_dev"):
-        arrays[name] = _np(getattr(fl, f"_{name}"))
+        arrays[name] = _np(get(name))
     if fl._coverage is not None:
         arrays["coverage"] = _np(fl._coverage)
     arrays["edges_np"] = np.asarray(fl._edges_np)
@@ -155,10 +172,14 @@ def save(path: str, fl) -> None:
 
     arrays["__header__"] = np.frombuffer(json.dumps(header).encode(),
                                          dtype=np.uint8)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
+    grouped = sharding.grouped(mesh)
+    if not grouped or mesh.first_block == 0:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    if grouped:
+        dist.barrier(group=mesh.group)  # the file exists for every rank
 
 
 def _get_topo(data, header, name: str):
@@ -183,21 +204,25 @@ def load(path: str, fl) -> None:
                          f"height, feature_capacity, poseframe_capacity) "
                          f"{got}, the Flame {want}")
     dev = fl.device
+    mesh = fl._sharding_mesh
 
-    def tensor(key, proto=None):
+    def tensor(key, proto=None, blocked=False):
         t = torch.as_tensor(data[key], device=dev)
-        if proto is not None and tuple(t.shape) != tuple(proto.shape):
-            raise ValueError(f"checkpoint.load: {key} has shape "
-                             f"{tuple(t.shape)}, the Flame "
-                             f"{tuple(proto.shape)}")
-        return t
+        if proto is not None:
+            shape = tuple(proto.shape)
+            if blocked and sharding.grouped(mesh):  # proto: the block
+                shape = (shape[0] * mesh.size,) + shape[1:]
+            if tuple(t.shape) != shape:
+                raise ValueError(f"checkpoint.load: {key} has shape "
+                                 f"{tuple(t.shape)}, the Flame {shape}")
+        return sharding.shard_rows(t, mesh) if blocked else t
 
     def fields(prefix, proto):
         kw = {}
         for f in dataclasses.fields(proto):
             key = f"{prefix}.{f.name}"
             p = getattr(proto, f.name)
-            kw[f.name] = tensor(key, p) if key in data else None
+            kw[f.name] = tensor(key, p, True) if key in data else None
         return type(proto)(**kw)
 
     fl._feats = fields("feats", fl._feats)
@@ -210,7 +235,8 @@ def load(path: str, fl) -> None:
         dst.copy_(tensor(f"stack.{f.name}", dst))
     for name in ("tris", "tri_validity", "vtx_idepths", "vtx_normals",
                  "idepthmap", "graph_scale"):
-        setattr(fl, f"_{name}", tensor(name, getattr(fl, f"_{name}")))
+        setattr(fl, f"_{name}", tensor(name, getattr(fl, f"_{name}"),
+                                       name in _BLOCKED))
     fl._last_stats_dev = tensor("last_stats_dev")
     fl._coverage = tensor("coverage") if "coverage" in data else None
     fl._edges_np = np.array(data["edges_np"])

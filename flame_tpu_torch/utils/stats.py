@@ -3,7 +3,8 @@
 tick/tock record host wall time in milliseconds. On a CUDA device,
 timed(name) also records a pair of CUDA events around the block, so a
 caller can read each stage's device-side time per frame
-(device_times_ms); the events are resolved only when read.
+(device_times_ms); the events are resolved only when read. Every key is
+stored with the tracker's prefix, as in the JAX package.
 """
 
 import threading
@@ -15,7 +16,12 @@ import torch
 
 
 class StatsTracker:
-    def __init__(self, device=None):
+    """Named timers (milliseconds) and scalar statistics, their keys
+    prefixed with `prefix`; device: where timed() also records CUDA
+    events."""
+
+    def __init__(self, prefix: str = "", device=None):
+        self._prefix = prefix
         self._lock = threading.Lock()
         self._tick_times: Dict[str, float] = {}
         self._timings: Dict[str, float] = {}
@@ -23,20 +29,30 @@ class StatsTracker:
         self._cuda = device is not None and torch.device(device).type == "cuda"
         self._events: Dict[str, List] = {}
 
+    def _key(self, name: str) -> str:
+        return self._prefix + name
+
     def tick(self, name: str) -> None:
         with self._lock:
-            self._tick_times[name] = time.perf_counter()
+            self._tick_times[self._key(name)] = time.perf_counter()
 
     def tock(self, name: str) -> float:
         """Stop a timer; returns and records elapsed milliseconds."""
         now = time.perf_counter()
+        key = self._key(name)
         with self._lock:
-            start = self._tick_times.get(name)
+            start = self._tick_times.get(key)
             if start is None:
                 return 0.0
             ms = (now - start) * 1000.0
-            self._timings[name] = ms
+            self._timings[key] = ms
             return ms
+
+    def timings(self, name: str) -> float:
+        """The last elapsed milliseconds of a timer (0 before its first
+        tock)."""
+        with self._lock:
+            return self._timings.get(self._key(name), 0.0)
 
     @contextmanager
     def timed(self, name: str):
@@ -53,7 +69,7 @@ class StatsTracker:
             if ev is not None:
                 ev[1].record()
                 with self._lock:
-                    self._events.setdefault(name, []).append(ev)
+                    self._events.setdefault(self._key(name), []).append(ev)
 
     def device_times_ms(self) -> Dict[str, List[float]]:
         """Per-stage CUDA-event times of every timed() block so far
@@ -65,25 +81,35 @@ class StatsTracker:
 
     def set(self, name: str, value: float) -> None:
         with self._lock:
-            self._stats[name] = float(value)
+            self._stats[self._key(name)] = float(value)
 
     def add(self, name: str, value: float) -> None:
+        key = self._key(name)
         with self._lock:
-            self._stats[name] = self._stats.get(name, 0.0) + float(value)
+            self._stats[key] = self._stats.get(key, 0.0) + float(value)
 
     def stats(self, name: str) -> float:
         with self._lock:
-            return self._stats.get(name, 0.0)
+            return self._stats.get(self._key(name), 0.0)
 
     def ema(self, name: str, value: float, alpha: float = 0.01) -> float:
+        key = self._key(name)
         with self._lock:
-            old = self._stats.get(name)
+            old = self._stats.get(key)
             new = float(value) if old is None \
                 else (1 - alpha) * old + alpha * float(value)
-            self._stats[name] = new
+            self._stats[key] = new
             return new
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
             return {"timings_ms": dict(self._timings),
                     "stats": dict(self._stats)}
+
+    def clear(self) -> None:
+        """Forget every timer, statistic and recorded CUDA event."""
+        with self._lock:
+            self._tick_times.clear()
+            self._timings.clear()
+            self._stats.clear()
+            self._events.clear()

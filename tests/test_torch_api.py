@@ -17,7 +17,9 @@ Tolerances, per function:
     carried duals exactly equal, alpha at rtol 1e-6;
   * filters.plane_param_normal: atol 1e-6; camera.backproject: atol 1e-6;
   * filter.search: statuses equal, match positions and residuals at atol
-    1e-3 (the SSD walk sums five float32 products per step).
+    1e-3 (the SSD walk sums five float32 products per step);
+  * utils.stats.StatsTracker: the same keys (prefixed), the same stats
+    and the same behaviour of timings() and clear() as the JAX class.
 """
 
 import ast
@@ -48,6 +50,7 @@ from flame_tpu.optimize import topology as jtopo  # noqa: E402
 from flame_tpu.params import Params as JParams  # noqa: E402
 from flame_tpu.stereo import filter as jfilter  # noqa: E402
 from flame_tpu.stereo import line_stereo as jls  # noqa: E402
+from flame_tpu.utils import stats as jstats  # noqa: E402
 from flame_tpu_torch import convert  # noqa: E402
 from flame_tpu_torch.core import keyframe  # noqa: E402
 from flame_tpu_torch.geometry import camera, epipolar, se3  # noqa: E402
@@ -58,6 +61,7 @@ from flame_tpu_torch.optimize import nltgv2, topology  # noqa: E402
 from flame_tpu_torch.params import RegularizerParams  # noqa: E402
 from flame_tpu_torch.stereo import filter as tfilter  # noqa: E402
 from flame_tpu_torch.stereo import line_stereo  # noqa: E402
+from flame_tpu_torch.utils import stats  # noqa: E402
 from flame_tpu_torch.utils import load_tracker  # noqa: E402
 
 W, H = 160, 120
@@ -496,6 +500,38 @@ def test_idepth_measurement_stacked_matches_jax():
 # ---------------------------------------------------------------------------
 # Support: the load tracker, the Delaunay source.
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("prefix", ["", "rank1/"])
+def test_stats_tracker_matches_jax(prefix):
+    """The port's StatsTracker against the JAX class: prefixed keys,
+    timings(name), stats, ema and clear(); the port keeps its device
+    argument (CUDA events on a card only)."""
+    trackers = (jstats.StatsTracker(prefix),
+                stats.StatsTracker(prefix, device="cpu"))
+    for tr in trackers:
+        assert tr.timings("stage") == 0.0 and tr.tock("stage") == 0.0
+        tr.tick("stage")
+        assert tr.tock("stage") >= 0.0
+        with tr.timed("block"):
+            pass
+        tr.set("count", 3)
+        tr.add("count", 2)
+        tr.add("fresh", 1.5)
+        tr.ema("rate", 10.0)
+        tr.ema("rate", 20.0, alpha=0.5)
+    (jt, tt) = (tr.snapshot() for tr in trackers)
+    assert set(jt["timings_ms"]) == set(tt["timings_ms"]) == {
+        prefix + "stage", prefix + "block"}
+    assert jt["stats"] == tt["stats"] == {
+        prefix + "count": 5.0, prefix + "fresh": 1.5, prefix + "rate": 15.0}
+    for tr, snap in zip(trackers, (jt, tt)):
+        assert tr.timings("stage") == snap["timings_ms"][prefix + "stage"]
+        assert tr.stats("count") == 5.0 and tr.stats("missing") == 0.0
+        tr.tick("open")
+        tr.clear()
+        assert tr.snapshot() == {"timings_ms": {}, "stats": {}}
+        assert tr.tock("open") == 0.0 and tr.timings("stage") == 0.0
+
 
 def test_load_tracker_on_the_cpu():
     from flame_tpu.utils import load_tracker as jlt

@@ -210,6 +210,34 @@ def test_halo_kernel_independent_of_partitions(request, which, parts):
             assert torch.equal(a, b)
 
 
+def test_halo_kernel_over_a_one_rank_group(graph):
+    """K3 over a one-rank NCCL group (its ring ends are its own peer
+    buffers, flags epoch-counted): three launches queued back to back,
+    each bit-equal to the one-process launch."""
+    import socket
+
+    import torch.distributed as dist
+    from flame_tpu_torch.parallel import multihost
+    g, _ = graph
+    lay, _ = _banded(g)
+    p = RegularizerParams()
+    base = halo_kernel.iterate(p, 40, D, 2, 1, lay.vtx, lay.slots)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = multihost.global_mesh()
+        outs = [halo_kernel.iterate(p, 40, D, 2, 1, lay.vtx, lay.slots,
+                                    mesh) for _ in range(3)]
+        for out in outs:
+            for a, b in zip(out, base):
+                assert torch.equal(a, b)
+    finally:
+        multihost.shutdown()
+    assert not dist.is_initialized()
+
+
 def test_halo_kernel_rejects_what_the_card_cannot_hold(cuda):
     """65,536 vertices in one partition: no cluster shape holds them all
     resident at once, so the wrapper raises before launching."""

@@ -239,8 +239,13 @@ def _dryrun_params():
 
 @pytest.fixture(scope="module")
 def dryrun():
+    return dryrun_state()
+
+
+def dryrun_state():
     """__graft_entry__.dryrun_multichip's state for 4 devices in both
-    packages, with the RCM order and ranks of its ring graph."""
+    packages, with the RCM order and ranks of its ring graph
+    (tests/test_torch_multihost.py runs it over a process group)."""
     import __graft_entry__ as ge
     jp = _dryrun_jax_params()
     fc, ec = jp.feature_capacity, jp.edge_capacity
