@@ -118,10 +118,18 @@ Phases (any failure raises and the script exits non-zero):
      K1 never per post-Delaunay step), "vertex" and "halo" for 12 frames
      against make_mesh(2) the same way; then mini-TUM 256x192 on noisy
      poses with BA over the group: ATE below 0.8x of the run without BA
-     (phase 9's gate), every solve sharded. A rank that fails makes the
-     script fail. (c) one NCCL rank in this process: ShardedFlame over
-     global_mesh() with "pallas_halo" bit-equal to make_mesh(1) under
-     torch.use_deterministic_algorithms.
+     (phase 9's gate), every solve sharded. (d) The batched step over
+     the group: ShardedFlame "pallas_halo" on phase 7's configuration
+     (throughput_params(): frame_batch=8, eviction) with resident frames
+     and deterministic=True, 38 frames (four batched steps): the map
+     within a median 1e-4 of make_mesh(2)'s in one process, phase 7's
+     gates, K2b once per batched step and K3 and K2 once per
+     post-Delaunay step on each rank, ms per batched step. A rank that
+     fails makes the script fail. (c) one NCCL rank in this process:
+     ShardedFlame over global_mesh() with "pallas_halo" bit-equal to
+     make_mesh(1) under torch.use_deterministic_algorithms, on the
+     synchronous path and (e) on (d)'s throughput configuration (22
+     frames, two batched steps).
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last lines are the kernels' JSON summary (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -770,6 +778,14 @@ def scene(n_frames):
     return K, Kinv, [render(0.08 * i) for i in range(n_frames)]
 
 
+def resident_scene(n_frames):
+    """scene(n_frames) with the frames already on the card."""
+    K, Kinv, frames = scene(n_frames)
+    frames = [torch.as_tensor(f, device="cuda") for f in frames]
+    torch.cuda.synchronize()
+    return K, Kinv, frames
+
+
 def pose(i):
     return np.array([1.0, 0, 0, 0]), np.array([0.08 * i, 0.0, 0.0])
 
@@ -896,11 +912,8 @@ def throughput_path(smi, mode, n_frames=96, sharded=False):
     card, staged before the run) or 'host' (numpy uint8) frames;
     sharded: through ShardedFlame with K3."""
     from flame_tpu_torch import _kernels
-    dev = torch.device("cuda")
-    K, Kinv, frames = scene(n_frames)
-    if mode == "resident":
-        frames = [torch.as_tensor(f, device=dev) for f in frames]
-        torch.cuda.synchronize()
+    K, Kinv, frames = (resident_scene if mode == "resident"
+                       else scene)(n_frames)
     fl = make_flame(K, Kinv, throughput_params(), sharded)
     p = fl.params
     B = p.solver.frame_batch
@@ -1795,6 +1808,10 @@ GROUP_TIMEOUT_S = 420  # both ranks together, builds loaded from _build/
 GROUP_FRAMES = 30  # phase 6's
 GROUP_SHORT_FRAMES = 12  # "vertex" and "halo"
 GROUP_BACK_TO_BACK = 5
+# Phase 7's configuration over the group: the bootstrap's single frames
+# (0-5), then four batched steps of 8 frames; three evictions.
+GROUP_BATCH_FRAMES = 38
+ONE_RANK_BATCH_FRAMES = 22  # 12e: two batched steps
 
 
 def group_k3(smi, mesh, rank, n_iters=40, reach=K3_REACH):
@@ -1930,6 +1947,91 @@ def group_flame(smi, mesh, smoother, n_frames):
     return launches
 
 
+def deterministic_throughput_params():
+    """throughput_params() with "pallas_halo" and solver.deterministic:
+    every snapshot and triangulation joined at once, so that the group
+    and the one-process mesh it is held to run one schedule."""
+    import dataclasses
+    p = with_smoother(throughput_params(), "pallas_halo")
+    return p.replace(solver=dataclasses.replace(p.solver,
+                                                deterministic=True))
+
+
+def group_batch(smi, mesh):
+    """12d on this rank: ShardedFlame over the group on phase 7's
+    throughput configuration (frame_batch=8, eviction) with resident
+    frames, "pallas_halo" and deterministic=True, against ShardedFlame on
+    make_mesh(2) of this process: K2b once per batched step, K3 and K2
+    once per post-Delaunay step, phase 7's map gates. Returns the group
+    run's launch counts."""
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.parallel import sharding
+    from flame_tpu_torch.parallel.orchestrator import ShardedFlame
+    n_frames = GROUP_BATCH_FRAMES
+    K, Kinv, frames = resident_scene(n_frames)
+    params = deterministic_throughput_params()
+    fl = ShardedFlame(W, H, K, Kinv, params, mesh=mesh)
+    _kernels.reset_launches()
+    step_ms, t_group = [], None
+    for i in range(n_frames):
+        if t_group is None:
+            t_group = time.perf_counter()
+        d0 = fl._dispatches
+        fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+        if fl._dispatches != d0:
+            torch.cuda.synchronize()
+            step_ms.append(1000 * (time.perf_counter() - t_group))
+            t_group = None
+        elif not fl._batch_pending:  # a frame of the single path
+            t_group = None
+    N = params.feature_capacity // GROUP_RANKS
+    if not (fl._feats.idepth_mu.shape[0] == N and fl._curr.xy.shape[0] == N
+            and fl._graph.x.shape[0] == N and fl._vtx_idepths.shape[0] == N):
+        raise AssertionError("12d: state not placed in blocks")
+    label = (f"12d ShardedFlame pallas_halo over {GROUP_RANKS} ranks, "
+             f"throughput path (resident frames, frame_batch=8, "
+             f"deterministic) 640x480, 4096 features ({N} rows per rank), "
+             f"{n_frames} frames")
+    check_map(fl, label)  # flushes the frames still buffered
+    launches = dict(_kernels.LAUNCHES)
+    n_post = len(fl.stats.device_times_ms().get("sync_graph", []))
+    evictions = int(fl.stats.stats("pf_evictions"))
+    idm = fl.get_inverse_depth_map()
+    ref = ShardedFlame(W, H, K, Kinv, params, mesh=sharding.make_mesh(2))
+    for i in range(n_frames):
+        ref.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+    ref_map = ref.get_inverse_depth_map()
+    both = ~np.isnan(idm) & ~np.isnan(ref_map)
+    diff = float(np.median(np.abs(idm[both] - ref_map[both])))
+    print(f"{label}: {fl._dispatches} batched steps ({ref._dispatches} on "
+          f"make_mesh(2)), {n_post} post-Delaunay steps, {evictions} "
+          f"poseframe evictions; median |idepth - make_mesh(2) idepth| "
+          f"{diff:.3g} (< 1e-4) over {both.mean():.4f} of the pixels; "
+          f"launches {launches}; {smi}")
+    print(f"{label}: ms per batched step over the group (host wall incl. "
+          f"synchronize, from the batch's first frame) "
+          + ", ".join(f"{v:.1f}" for v in step_ms)
+          + f", median of steps 2-{len(step_ms)} "
+          f"{np.median(step_ms[1:]):.1f}; median ms per stage (CUDA "
+          f"events, steps 2-): "
+          + stage_medians(fl, ("raster_batch", "update_idepths",
+                               "sync_graph", "smoother", "raster"), 1)
+          + f"; the two processes' contexts time-slicing on the one card "
+          f"(not a time between two cards); {smi}")
+    if not (fl._dispatches >= 4 and fl._dispatches == ref._dispatches
+            and launches["raster_mesh_batch"] == fl._dispatches):
+        raise AssertionError(f"12d: raster_mesh_batch launches "
+                             f"{launches['raster_mesh_batch']} vs "
+                             f"{fl._dispatches} batched steps")
+    per_step = {"halo_smoother": 1, "nltgv2_smoother": 0, "raster_mesh": 1}
+    if any(launches[k] != v * n_post for k, v in per_step.items()):
+        raise AssertionError(f"12d: launches {launches} for {n_post} "
+                             f"post-Delaunay steps")
+    if not (diff < 1e-4 and both.mean() > 0.5 and evictions >= 1):
+        raise AssertionError(f"{label}: departs from make_mesh(2)")
+    return launches
+
+
 def group_ba(smi, mesh, rank):
     """12b's BA run on this rank: mini-TUM 256x192 on noisy poses with BA
     over the group against the run without BA (the coordinator's, in one
@@ -1979,9 +2081,9 @@ def group_ba(smi, mesh, rank):
 
 
 def group_rank_main(rank, coord, out_path):
-    """One rank of phase 12a-b (chip_smoke.py --group-rank R --coord
-    HOST:PORT --out FILE): joins the gloo group, runs its checks, and the
-    coordinator writes the main-path launch counts to FILE."""
+    """One rank of phase 12a, 12b and 12d (chip_smoke.py --group-rank R
+    --coord HOST:PORT --out FILE): joins the gloo group, runs its checks,
+    and the coordinator writes the main-path launch counts to FILE."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from flame_tpu_torch import _kernels
     from flame_tpu_torch.parallel import multihost
@@ -2003,6 +2105,7 @@ def group_rank_main(rank, coord, out_path):
         runs += [group_flame(smi, mesh, sm, GROUP_SHORT_FRAMES)
                  for sm in ("vertex", "halo")]
         runs.append(group_ba(smi, mesh, rank))
+        runs.append(group_batch(smi, mesh))
     finally:
         multihost.shutdown()
     if rank == 0:
@@ -2012,47 +2115,61 @@ def group_rank_main(rank, coord, out_path):
 
 
 def group_one_nccl_rank(smi, n_frames=16):
-    """12c: ShardedFlame over a one-rank NCCL group with "pallas_halo"
-    against make_mesh(1), bit for bit under
-    torch.use_deterministic_algorithms. Returns the group run's launch
-    counts."""
+    """12c and 12e: ShardedFlame over a one-rank NCCL group with
+    "pallas_halo" against make_mesh(1), bit for bit under
+    torch.use_deterministic_algorithms: (c) on the synchronous path
+    (bench_params(), n_frames frames), (e) on the throughput path
+    (deterministic_throughput_params(), resident frames, two batched
+    steps). Returns the group runs' launch counts."""
     from flame_tpu_torch import _kernels
     from flame_tpu_torch.parallel import multihost, sharding
     from flame_tpu_torch.parallel.orchestrator import ShardedFlame
-    K, Kinv, frames = scene(n_frames)
-    params = with_smoother(bench_params(), "pallas_halo")
+    cases = (("12c", "synchronous path", bench_params(), scene(n_frames)),
+             ("12e", "throughput path (resident frames, frame_batch=8)",
+              deterministic_throughput_params(),
+              resident_scene(ONE_RANK_BATCH_FRAMES)))
     multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
+    out = []
     try:
-        maps, launches = {}, None
-        for name in ("group", "one"):
-            mesh = (multihost.global_mesh() if name == "group"
-                    else sharding.make_mesh(1))
-            fl = ShardedFlame(W, H, K, Kinv, params, mesh=mesh)
-            _kernels.reset_launches()
-            for i in range(n_frames):
-                fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
-            torch.cuda.synchronize()
-            if name == "group":
-                launches = dict(_kernels.LAUNCHES)
-            maps[name] = fl.get_inverse_depth_map()
+        for tag, path, params, (K, Kinv, frames) in cases:
+            params = with_smoother(params, "pallas_halo")
+            maps, steps, launches = {}, {}, None
+            for name in ("group", "one"):
+                mesh = (multihost.global_mesh() if name == "group"
+                        else sharding.make_mesh(1))
+                fl = ShardedFlame(W, H, K, Kinv, params, mesh=mesh)
+                _kernels.reset_launches()
+                for i, img in enumerate(frames):
+                    fl.update(i / 30.0, i, pose(i), img, i % 2 == 0)
+                torch.cuda.synchronize()
+                if name == "group":
+                    launches = dict(_kernels.LAUNCHES)
+                steps[name] = fl._dispatches
+                maps[name] = fl.get_inverse_depth_map()
+            same = np.array_equal(maps["group"], maps["one"], equal_nan=True)
+            print(f"{tag} ShardedFlame pallas_halo over one NCCL rank, "
+                  f"{path}, {len(frames)} frames, {steps['group']} batched "
+                  f"steps: map bit-equal to make_mesh(1) {same}; launches "
+                  f"{launches}; {smi}")
+            batched = params.solver.frame_batch > 1
+            if not (same and launches["halo_smoother"] >= 1
+                    and steps["group"] == steps["one"]
+                    and launches["raster_mesh_batch"] == steps["group"]
+                    and (steps["group"] >= 2 or not batched)):
+                raise AssertionError(f"{tag}: the one-rank group departs "
+                                     f"from make_mesh(1)")
+            out.append(launches)
     finally:
         torch.use_deterministic_algorithms(was)
         multihost.shutdown()
-    same = np.array_equal(maps["group"], maps["one"], equal_nan=True)
-    print(f"12c ShardedFlame pallas_halo over one NCCL rank, {n_frames} "
-          f"frames: map bit-equal to make_mesh(1) {same}; launches "
-          f"{launches}; {smi}")
-    if not same or launches["halo_smoother"] < 1:
-        raise AssertionError("12c: the one-rank group departs from "
-                             "make_mesh(1)")
-    return launches
+    return out
 
 
 def transport_phase(smi):
     """Phase 12; returns the launch counts of its main-path runs (rank 0's
-    12b runs and 12c's)."""
+    12b and 12d runs, 12c's and 12e's)."""
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -2081,14 +2198,14 @@ def transport_phase(smi):
         for line in out.splitlines():
             print(f"[rank {r}] {line}")
     rcs = [p.returncode for p in procs]
-    print(f"12a-b: {GROUP_RANKS} ranks in {time.perf_counter() - t0:.1f} s, "
-          f"exit codes {rcs}")
+    print(f"12a, 12b, 12d: {GROUP_RANKS} ranks in "
+          f"{time.perf_counter() - t0:.1f} s, exit codes {rcs}")
     if any(rcs) or len(outs) != GROUP_RANKS:
         raise AssertionError(f"12: a rank failed ({rcs})")
     with open(out_path) as f:
         res = json.load(f)
     shutil.rmtree(out_dir, ignore_errors=True)
-    return res["launches"] + [group_one_nccl_rank(smi)]
+    return res["launches"] + group_one_nccl_rank(smi)
 
 
 def multichip_layer(smi, g, sharded_ba):

@@ -60,10 +60,12 @@ read the whole state gather it explicitly (sharding.gather_rows) and
 keep their block of the result (sharding.shard_rows): tracking runs on
 the block, detection and insertion, the snapshot, topology, graph sync
 and the mesh outputs on the gathered state on every rank, the halo
-smoothers over the group. Every rank triangulates the same snapshot
-(the same bits in give the same triangles; a broadcast of the
-coordinator's result would add a collective whose size is known only
-after the triangulation), and a decision that depends on timing (has a copy or a triangulation
+smoothers over the group; pipeline.batch_step does the same per frame
+of a batch, and K2b draws the batch's maps on every rank. Every rank
+triangulates the same snapshot (the same bits in give the same
+triangles; a broadcast of the coordinator's result would add a
+collective whose size is known only after the triangulation), and a
+decision that depends on timing (has a copy or a triangulation
 landed?) is the coordinator's for the whole group (sharding.agree), so
 every rank issues the same collectives in the same order from the main
 thread. The getters that read feature or graph state gather it: every
@@ -544,7 +546,8 @@ class Flame:
         bookkeeping runs in the JAX package's order: poseframe slots for
         all frames are allocated before the step, so an eviction re-anchors
         on the pre-batch stack and a freed slot can go to a later frame of
-        the same batch."""
+        the same batch. Over a process group the step takes and returns
+        the rank's blocks of the feature and graph state."""
         p, dev = self.params, self.device
         B = len(frames)
         self._coalesce = True

@@ -722,10 +722,21 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
     optional context-manager factory for the "raster_batch",
     "update_idepths" and "sync_graph" stages.
 
+    Over a process group (mesh, sharding.grouped) feats and graph are
+    this rank's blocks, as in track_step: the graph is gathered once, so
+    that the views' projection and the post-Delaunay section read the
+    same batch-start graph; K2b draws the B maps whole on every rank;
+    each frame tracks on the rank's block, and a detecting frame detects
+    and inserts on the gathered state, of which each rank keeps its own
+    rows; the snapshot is packed from the owners' rows gathered after the
+    last frame (each frame's obs with them, on the feature axis); stats
+    are summed over the frames, then over the group.
+
     Returns (fnew_last, stack, feats', curr_last, member_last, stats
     summed over the batch, packed (widened under do_ba), graph',
     vtx_idepths, normals, tri_validity, idepthmap, graph_scale', coverage,
-    max_union): the last
+    max_union): feats', curr_last, member_last, graph', vtx_idepths and
+    normals are the rank's blocks over a process group; max_union
     is the largest per-tile count of union-bbox candidates, a device
     scalar; above MAX_PER_TILE_BATCH the per-frame maps lost triangles
     (the lowest-index ones of that tile), as on the TPU."""
@@ -734,6 +745,7 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
     qs = torch.stack([q.float() for q in qs])
     ts = torch.stack([t.float() for t in ts])
     tris = topo["tris"].long()
+    graph = sharding.gather_rows(mesh, graph)
 
     with timed("raster_batch"):
         pos_views, id_views, tri_ok_views = project_views(
@@ -755,27 +767,37 @@ def batch_step(params: Params, K, Kinv, stack: FrameStack,
                 params, K, Kinv, stack, feats, f, slot)
             obs_b.append(obs)
             if det_flags[b]:
-                feats = _detect_and_insert(
-                    params, K, Kinv, stack, slot, feats, curr, pq, pt,
+                whole, curr_w = sharding.gather_rows(mesh, feats, curr)
+                feats = sharding.shard_rows(_detect_and_insert(
+                    params, K, Kinv, stack, slot, whole, curr_w, pq, pt,
                     int(id_bases[b]),
-                    seed_map if b == 0 else dense_views[b - 1])
+                    seed_map if b == 0 else dense_views[b - 1]), mesh)
             if pf_flags[b]:
                 frame_mod.set_idepthmap(stack, slot, dense_views[b])
             stats = st if stats is None else stats + st
             pq, pt = f.q, f.t
-        packed = pack_track_outputs(feats, curr, member)
+        if sharding.grouped(mesh):
+            stats = sharding.psum([stats], mesh)
+        # The frames' obs stacked on dim 1: gather_rows gathers dim 0.
+        obs = (TrackObs(*(torch.stack(o, dim=1) for o in zip(*obs_b))),) \
+            if params.do_ba else ()
+        feats_w, curr_w, member_w, *obs = sharding.gather_rows(
+            mesh, feats, curr, member, *obs)
+        packed = pack_track_outputs(feats_w, curr_w, member_w)
         if params.do_ba:
             packed = pack_ba_outputs(params, packed, TrackObs(
-                *(torch.stack(f) for f in zip(*obs_b))), feats, stack)
+                *(o.movedim(1, 0) for o in obs[0])), feats_w, stack)
 
     with timed("sync_graph"):
-        post = _post_delaunay_inner(
-            params, K, Kinv, graph, member, curr, (sync_q, sync_t),
+        graph, vtx_idepths, normals, *post = _post_delaunay_inner(
+            params, K, Kinv, graph, member_w, curr_w, (sync_q, sync_t),
             (f.q, f.t), graph_scale, width, height,
             dense_views[-1] if params.init_with_prediction else None,
             mesh=mesh, timed=timed, **topo)
-    return (f, stack, feats, curr, member, stats, packed) + post \
-        + (max_union,)
+    graph, vtx_idepths, normals = (sharding.shard_rows(a, mesh)
+                                   for a in (graph, vtx_idepths, normals))
+    return (f, stack, feats, curr, member, stats, packed, graph,
+            vtx_idepths, normals, *post, max_union)
 
 
 def mesh_outputs(params: Params, K, Kinv, width: int, height: int, graph,

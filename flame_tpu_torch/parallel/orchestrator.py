@@ -22,9 +22,11 @@ the frames, the poseframe stack, the dense maps and the triangles whole.
 core/flame.py gathers the blocks where a stage reads the whole state,
 the halo smoothers send their strips between ranks (K3 through CUDA IPC
 peer buffers), and utils/checkpoint.py gathers on save and puts the
-blocks back on load. Every rank runs the same update() calls. The
-batched step (frame_batch > 1) over a group is not ported yet (ROADMAP
-section 1 item 6.5) and raises NotImplementedError.
+blocks back on load. Every rank runs the same update() calls, the
+batched step (frame_batch > 1, pipeline.batch_step with K2b) included:
+K2b draws the batch's maps whole on every rank, tracking runs on the
+rank's block, and detection, the snapshot and the post-Delaunay section
+read the gathered state.
 """
 
 import dataclasses
@@ -59,11 +61,6 @@ class ShardedFlame(Flame):
         if params.feature_capacity % n or params.edge_capacity % n:
             raise ValueError("feature/edge capacity must divide into the "
                              f"mesh's {n} partitions")
-        if grouped(mesh) and params.solver.frame_batch > 1:
-            raise NotImplementedError(
-                "ShardedFlame: the batched step (frame_batch > 1) over a "
-                "process group is not ported yet (ROADMAP section 1 item "
-                "6.5); use frame_batch=1")
         mode = params.solver.smoother
         if mode in ("auto", "pallas"):
             if mode == "pallas":

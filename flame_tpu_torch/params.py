@@ -3,9 +3,7 @@
 The same frozen dataclasses, field names and defaults as
 flame_tpu/params.py, so one configuration drives both packages
 (convert.params_from_dict). Left out: `max_topology_staleness` (never
-read) and the scoped-VMEM budget, a TPU limit. Two fields configure
-paths that are not ported yet (bundle adjustment, automatic
-poseframes); Flame raises when one of them is set.
+read) and the scoped-VMEM budget, a TPU limit.
 """
 
 import dataclasses
@@ -183,7 +181,7 @@ class Params:
         default_factory=RegularizerParams)
     solver: SolverParams = dataclasses.field(default_factory=SolverParams)
 
-    # Automatic poseframe selection (not ported yet).
+    # Automatic poseframe selection (Flame._want_poseframe).
     auto_poseframe: bool = False
     auto_pf_max_disparity: float = 16.0
     auto_pf_depth: float = 5.0

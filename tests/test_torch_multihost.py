@@ -20,8 +20,19 @@ checks on global_mesh() (one partition per rank):
     median relative error < 0.02); do_ba with test_sharded_ba_e2e's
     Params (max_obs=1001, aniso weights) to its assertions; and the
     asynchronous path, whose ranks agree on every timing decision;
+  * two ranks, the batched step (pipeline.batch_step with K2b's plain
+    version: frame_batch=4, async topology, deterministic, uint8 frames,
+    16 frames): "vertex", and "pallas_halo" with bench.py's comparison-
+    poseframe scoring and eviction (4 poseframe slots), each bit-equal
+    to make_mesh(2) with the same poseframe slots on every rank;
+    tests/test_torch_checkpoint.py's batched BA configuration, every
+    solve sharded, the poseframes within 0.02 m of the truth (ATE too)
+    and the map equal to make_mesh(2)'s; automatic poseframes, every
+    rank declaring make_mesh(2)'s frames; a save mid-batch whose resumed
+    run equals the continued one;
   * four ranks: a psum, both plain halo smoothers and the "pallas_halo"
-    ShardedFlame (1024 features: 8 rank rows, 2 per rank = the reach).
+    ShardedFlame (1024 features: 8 rank rows, 2 per rank = the reach),
+    single-frame and batched.
 
 Each worker has its own 120 s limit and destroys its group; the pytest
 process initializes none. The other tolerances: the edge-sharded
@@ -29,17 +40,19 @@ smoother within 1e-5 of nltgv2.smooth after 10 iterations, the sharded
 BA within 1e-4 of schur.solve_window on t, q and lm and within 1e-2
 relative on the cost (tests/test_multihost.py's).
 
-In the pytest process, test_group_map_matches_jax holds the group runs'
-maps to the JAX package's ShardedFlame on as many virtual CPU devices
-(tests/conftest.py) for the same frames: both within test_sharded_e2e's
-bounds, covering the same pixels (IoU >= 0.95) with median relative
-|d idepth| <= 1e-2 (tests/test_torch_flame_e2e.py's whole-run bound:
-accept/reject decisions flip on float noise, so whole runs are held to
-bounds, not bits). Stage by stage, test_group_step_matches_eager_jax
-holds the group's sharded_update_step on tests/test_torch_sharding.py's
-dry-run state to eager JAX tracking (rtol 1e-2 on idepths and variances,
-0.02 px, decisions exactly: that file's tolerances) and to JAX's sharded
-step's graph on 2 virtual devices (atol 1e-5).
+In the pytest process, test_group_map_matches_jax and
+test_group_batch_map_matches_jax hold the group runs' "vertex" maps to
+the JAX package's ShardedFlame on as many virtual CPU devices
+(tests/conftest.py) with the same Params and frames: both within
+test_sharded_e2e's bounds, covering the same pixels (IoU >= 0.95)
+with median relative |d idepth| <= 1e-2 (tests/test_torch_flame_e2e.py's
+whole-run bound: accept/reject decisions flip on float noise, so whole
+runs are held to bounds, not bits). Stage by stage,
+test_group_step_matches_eager_jax holds the group's sharded_update_step
+on tests/test_torch_sharding.py's dry-run state to eager JAX tracking
+(rtol 1e-2 on idepths and variances, 0.02 px, decisions exactly: that
+file's tolerances) and to JAX's sharded step's graph on 2 virtual
+devices (atol 1e-5).
 """
 
 import os
@@ -61,7 +74,11 @@ CHECKS = ("psum", "smooth", "ba", "grid", "halo", "kernel", "step",
           "checkpoint", "stage")
 FLAME_CHECKS = ("flame_vertex", "flame_halo", "flame_pallas_halo",
                 "flame_ba", "flame_async")
-FOUR_CHECKS = ("psum", "halo", "kernel", "flame_pallas_halo")
+BATCH_CHECKS = ("flame_batch_vertex", "flame_batch_pallas_halo",
+                "flame_batch_ba", "flame_batch_auto", "checkpoint_batch")
+FOUR_CHECKS = ("psum", "halo", "kernel", "flame_pallas_halo",
+               "flame_batch_pallas_halo")
+BATCH_FRAMES = 16
 
 
 def _launch(out_dir, n, checks):
@@ -118,6 +135,11 @@ def flame_outputs(maps_dir):
 
 
 @pytest.fixture(scope="module")
+def batch_outputs(maps_dir):
+    return _launch(maps_dir, 2, BATCH_CHECKS)
+
+
+@pytest.fixture(scope="module")
 def four_outputs(maps_dir):
     return _launch(maps_dir, 4, FOUR_CHECKS)
 
@@ -149,6 +171,15 @@ def test_flame_workers_finish(flame_outputs):
 @pytest.mark.parametrize("check", FLAME_CHECKS)
 def test_sharded_flame_across_processes(flame_outputs, check):
     _passed(flame_outputs, check)
+
+
+def test_batch_workers_finish(batch_outputs):
+    _finished(batch_outputs)
+
+
+@pytest.mark.parametrize("check", BATCH_CHECKS)
+def test_batched_step_across_processes(batch_outputs, check):
+    _passed(batch_outputs, check)
 
 
 def test_four_workers_finish(four_outputs):
@@ -199,9 +230,11 @@ def test_group_step_matches_eager_jax(outputs, maps_dir, dryrun, smoother):
     _assert_fields(graph2, jout[3], 1e-5)
 
 
-def _jax_sharded_map(smoother, n):
+def _jax_sharded_map(smoother, n, batched=False):
     """The JAX package's ShardedFlame on n virtual devices, with
-    test_sharded_e2e.py's Params for the mode, on its 14 frames."""
+    test_sharded_e2e.py's Params for the mode, on its 14 frames; batched:
+    with the worker's batch_params (frame_batch=4, async topology,
+    deterministic) on its 16 uint8 frames."""
     import jax
     import jax.numpy as jnp
 
@@ -211,33 +244,34 @@ def _jax_sharded_map(smoother, n):
     from flame_tpu.parallel.orchestrator import ShardedFlame
     from test_sharded_e2e import FX, H, W, render
     big = smoother != "vertex"
+    solver = dict(n_iters_per_frame=30, max_vertex_degree=16,
+                  smoother=smoother)
+    if batched:
+        solver.update(frame_batch=4, async_topology=True, deterministic=True)
     params = Params(
         feature_capacity=1024 if big else 512,
         edge_capacity=4096 if big else 2048,
         triangle_capacity=2048 if big else 1024, poseframe_capacity=8,
         min_height=-100.0, max_height=100.0, idepth_init=0.05,
         idepth_var_init=0.25, detection=DetectionParams(win_size=16),
-        solver=SolverParams(n_iters_per_frame=30, max_vertex_degree=16,
-                            smoother=smoother),
-        debug_quiet=True)
+        solver=SolverParams(**solver), debug_quiet=True)
     K = camera.make_k(FX, FX, W / 2, H / 2)
     fl = ShardedFlame(W, H, K, camera.inv_k(K), params,
                       mesh=sharding.make_mesh(jax.devices()[:n]))
-    for i in range(14):
+    for i in range(BATCH_FRAMES if batched else 14):
         cam_x = 0.15 * i
+        img = render(cam_x)
+        if batched:
+            img = np.clip(img, 0, 255).astype(np.uint8)
         fl.update(i * 0.1, i, (se3.quat_identity(),
                                jnp.array([cam_x, 0.0, 0.0])),
-                  render(cam_x), i % 2 == 0)
+                  img, i % 2 == 0)
     assert len(fl._feats.idepth_mu.sharding.device_set) == n
+    assert fl._dispatches >= (2 if batched else 0)
     return fl.get_inverse_depth_map()
 
 
-@pytest.mark.parametrize("smoother,n", [("vertex", 2)])
-def test_group_map_matches_jax(flame_outputs, maps_dir, smoother, n):
-    path = maps_dir / f"{smoother}_{n}.npy"
-    assert path.exists(), flame_outputs
-    port = np.load(path)
-    ref = _jax_sharded_map(smoother, n)
+def _assert_matches_jax(port, ref):
     for idm in (port, ref):
         cov = np.mean(~np.isnan(idm))
         assert cov > 0.5, cov
@@ -248,3 +282,20 @@ def test_group_map_matches_jax(flame_outputs, maps_dir, smoother, n):
     both = ca & cb
     assert np.median(np.abs(port[both] - ref[both]) / np.abs(ref[both])) \
         <= 1e-2
+
+
+@pytest.mark.parametrize("smoother,n", [("vertex", 2)])
+def test_group_map_matches_jax(flame_outputs, maps_dir, smoother, n):
+    path = maps_dir / f"{smoother}_{n}.npy"
+    assert path.exists(), flame_outputs
+    _assert_matches_jax(np.load(path), _jax_sharded_map(smoother, n))
+
+
+def test_group_batch_map_matches_jax(batch_outputs, maps_dir):
+    """The two-rank batched run (frame_batch=4, "vertex") against the
+    JAX package's ShardedFlame on 2 virtual devices with the same Params
+    and frames, at the whole-run bounds."""
+    path = maps_dir / "batch_vertex_2.npy"
+    assert path.exists(), batch_outputs
+    _assert_matches_jax(np.load(path),
+                        _jax_sharded_map("vertex", 2, batched=True))

@@ -34,7 +34,7 @@ from flame_tpu_torch.optimize import nltgv2, smoother_kernel  # noqa: E402
 from flame_tpu_torch.parallel import (distributed_ba, halo,  # noqa: E402
                                       halo_kernel, multihost, sharding)
 from flame_tpu_torch.parallel.orchestrator import ShardedFlame  # noqa: E402
-from flame_tpu_torch.utils import checkpoint  # noqa: E402
+from flame_tpu_torch.utils import checkpoint, evaluation  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -42,6 +42,7 @@ FX = 100.0
 W, H = 160, 120
 PLANE_Z = 5.0
 N_FRAMES = 14
+BATCH_FRAMES = 16
 K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
 KINV = np.linalg.inv(K.astype(np.float64)).astype(np.float32)
 FIELDS = ("x", "w1", "w2", "x_bar", "w1_bar", "w2_bar", "q1", "q2", "q3")
@@ -62,26 +63,44 @@ def render(cam_x):
 
 def scene_params(smoother="vertex", **kw):
     """test_sharded_e2e.py's Params: 512 features for "vertex", its
-    _run_halo_mode's 1024 for the banded modes."""
+    _run_halo_mode's 1024 for the banded modes; kw overrides a field."""
     big = smoother != "vertex"
     solver = dict(n_iters_per_frame=30, max_vertex_degree=16,
                   smoother=smoother)
     solver.update(kw.pop("solver", {}))
-    return Params(
+    kw = {**dict(
         feature_capacity=1024 if big else 512,
         edge_capacity=4096 if big else 2048,
         triangle_capacity=2048 if big else 1024, poseframe_capacity=8,
         min_height=-100.0, max_height=100.0, idepth_init=0.05,
-        idepth_var_init=0.25, detection=DetectionParams(win_size=16),
-        solver=SolverParams(**solver), debug_quiet=True, **kw)
+        idepth_var_init=0.25), **kw}
+    return Params(detection=DetectionParams(win_size=16),
+                  solver=SolverParams(**solver), debug_quiet=True, **kw)
 
 
-def run(fl, lo=0, hi=N_FRAMES):
+def batch_params(smoother="vertex", evict=False, **kw):
+    """scene_params on the throughput path: frame_batch=4 under async
+    topology with the JAX package's schedule (deterministic); evict:
+    with bench.py's comparison-poseframe scoring and eviction (4
+    poseframe slots, full by frame 6)."""
+    if evict:
+        kw.update(poseframe_capacity=4, photo_error_num_pfs=30)
+    return scene_params(smoother, solver=dict(
+        frame_batch=4, async_topology=True, deterministic=True), **kw)
+
+
+def run(fl, lo=0, hi=N_FRAMES, u8=False):
+    """Frames lo..hi-1, every second one a poseframe (under
+    auto_poseframe the selector decides); u8: uint8 images, which the
+    batched step takes (float images run the single path)."""
     for i in range(lo, hi):
         cam_x = 0.15 * i
+        img = render(cam_x)
+        if u8:
+            img = np.clip(img, 0, 255).astype(np.uint8)
         fl.update(i * 0.1, i, (np.array([1.0, 0, 0, 0]),
-                               np.array([cam_x, 0.0, 0.0])),
-                  render(cam_x), i % 2 == 0)
+                               np.array([cam_x, 0.0, 0.0])), img,
+                  None if fl.params.auto_poseframe else i % 2 == 0)
     return fl
 
 
@@ -373,6 +392,126 @@ def check_checkpoint(mesh):
     assert np.mean(~np.isnan(b)) > 0.5
 
 
+def assert_ranks_agree(idm, what):
+    """The ranks' replicated maps equal."""
+    idm = torch.as_tensor(idm)
+    maps = [torch.empty_like(idm) for _ in range(n)]
+    dist.all_gather(maps, idm)
+    for m in maps[1:]:
+        assert_equal_maps(maps[0].numpy(), m.numpy(), what)
+
+
+def batch_check(smoother, evict):
+    """The batched step over the group (pipeline.batch_step, K2b's plain
+    version) against make_mesh(n) in one process; evict: with eviction,
+    whose slots every rank frees alike."""
+    def check(mesh):
+        params = batch_params(smoother, evict)
+        fl = run(ShardedFlame(W, H, K, KINV, params, mesh=mesh,
+                              device="cpu"), 0, BATCH_FRAMES, u8=True)
+        ref = run(ShardedFlame(W, H, K, KINV, params,
+                               mesh=sharding.make_mesh(n, "cpu"),
+                               device="cpu"), 0, BATCH_FRAMES, u8=True)
+        placed(fl, f"batch {smoother}")
+        assert fl._dispatches >= 2 and fl._dispatches == ref._dispatches, \
+            (fl._dispatches, ref._dispatches)
+        # The last batched step's stats, summed over the group (the
+        # getters flush the buffered frames through the single path).
+        assert fl._last_dispatch_frames == 4
+        assert torch.equal(fl._last_stats_dev, ref._last_stats_dev)
+        idm = fl.get_inverse_depth_map()
+        assert_equal_maps(idm, ref.get_inverse_depth_map(), smoother)
+        assert (fl.stats.stats("pf_evictions") >= 1) == evict
+        slots = [None] * n
+        dist.all_gather_object(slots, (fl._pf_slot_by_id, fl._pf_free))
+        assert all(x == (ref._pf_slot_by_id, ref._pf_free) for x in slots)
+        assert_map_bounds(idm, f"batch {smoother}")
+        assert_ranks_agree(idm, f"batch {smoother} ranks")
+        if multihost.is_coordinator():
+            np.save(os.path.join(os.environ["OUT_DIR"],
+                                 f"batch_{smoother}_{n}.npy"), idm)
+    return check
+
+
+def check_flame_batch_ba(mesh):
+    """tests/test_torch_checkpoint.py's batched BA configuration
+    (frame_batch=4, deterministic, a solve every 3 new poseframes) over
+    the group, exact poses: every solve sharded, the poseframes where
+    check_flame_ba holds them, the map equal to make_mesh(n)'s."""
+    params = batch_params(do_ba=True, ba=BAParams(
+        window_size=8, n_gn_iters=2, obs_capacity=2048, max_landmarks=256,
+        max_obs=512, solve_min_new_pfs=3))
+    fl = run(ShardedFlame(W, H, K, KINV, params, mesh=mesh, device="cpu"),
+             0, BATCH_FRAMES, u8=True)
+    placed(fl, "batch ba")
+    st = fl.stats
+    assert fl._dispatches >= 2, fl._dispatches
+    assert st.stats("ba_sharded_solves") >= 1
+    assert st.stats("ba_single_solves") == 0.0
+    assert fl._ba.last_cost is not None and np.isfinite(fl._ba.last_cost)
+    ids = sorted(fl._pf_slot_by_id)
+    t = fl._stack.t[[fl._pf_slot_by_id[i] for i in ids]].numpy()
+    gt = np.array([[0.15 * i, 0.0, 0.0] for i in ids])
+    assert np.linalg.norm(t - gt, axis=1).max() < 0.02, (ids, t)
+    assert evaluation.ate_rmse(t, gt) < 0.02
+    ref = run(ShardedFlame(W, H, K, KINV, params,
+                           mesh=sharding.make_mesh(n, "cpu"), device="cpu"),
+              0, BATCH_FRAMES, u8=True)
+    assert ref.stats.stats("ba_sharded_solves") \
+        == st.stats("ba_sharded_solves")
+    assert_equal_maps(fl.get_inverse_depth_map(), ref.get_inverse_depth_map(),
+                      "batch ba")
+
+
+def check_flame_batch_auto(mesh):
+    """Automatic poseframes on the batched step over the group
+    (tests/test_torch_auto_poseframe.py's selector settings): every rank
+    declares the same frames as make_mesh(n), and the maps are equal."""
+    params = batch_params(auto_poseframe=True, auto_pf_max_disparity=12.0,
+                          auto_pf_depth=PLANE_Z)
+    fl = run(ShardedFlame(W, H, K, KINV, params, mesh=mesh, device="cpu"),
+             0, BATCH_FRAMES, u8=True)
+    ref = run(ShardedFlame(W, H, K, KINV, params,
+                           mesh=sharding.make_mesh(n, "cpu"), device="cpu"),
+              0, BATCH_FRAMES, u8=True)
+    assert fl._dispatches >= 2 and fl._dispatches == ref._dispatches
+    idm = fl.get_inverse_depth_map()
+    assert_equal_maps(idm, ref.get_inverse_depth_map(), "batch auto")
+    declared = [None] * n
+    dist.all_gather_object(declared, sorted(fl._pf_slot_by_id))
+    assert len(declared[0]) >= 2
+    assert all(d == sorted(ref._pf_slot_by_id) for d in declared), declared
+
+
+def check_checkpoint_batch(mesh):
+    """A save mid-batch over the group: the buffered frames run through
+    the single-frame group path, the blocks go back to their ranks, and
+    the resumed batched run equals the continued one."""
+    params = batch_params()
+    fl = run(ShardedFlame(W, H, K, KINV, params, mesh=mesh, device="cpu"),
+             0, 11, u8=True)
+    assert fl._batch_pending and fl._dispatches >= 1
+    d = [tempfile.mkdtemp() if rank == 0 else None]
+    dist.broadcast_object_list(d, src=0)
+    path = os.path.join(d[0], "group_batch.npz")
+    checkpoint.save(path, fl)
+    assert not fl._batch_pending
+    fl2 = ShardedFlame(W, H, K, KINV, params, mesh=mesh, device="cpu")
+    checkpoint.load(path, fl2)
+    placed(fl2, "loaded mid-batch")
+    for a, b in zip((fl._feats, fl._curr, fl._graph),
+                    (fl2._feats, fl2._curr, fl2._graph)):
+        assert_same(a, b)
+    d0 = fl._dispatches
+    run(fl, 11, 20, u8=True)
+    run(fl2, 11, 20, u8=True)
+    assert fl._dispatches > d0 and fl2._dispatches == fl._dispatches
+    a = fl.get_inverse_depth_map()
+    b = fl2.get_inverse_depth_map()
+    np.testing.assert_array_equal(a, b)
+    assert np.mean(~np.isnan(b)) > 0.5
+
+
 def check_flame_async(mesh):
     """The asynchronous path over the group: the coordinator decides
     whether a snapshot or a triangulation has landed for every rank
@@ -381,12 +520,9 @@ def check_flame_async(mesh):
     params = scene_params("vertex", solver=dict(async_topology=True))
     fl = run(ShardedFlame(W, H, K, KINV, params, mesh=mesh, device="cpu"))
     placed(fl, "async")
-    idm = torch.as_tensor(fl.get_inverse_depth_map())
-    maps = [torch.empty_like(idm) for _ in range(n)]
-    dist.all_gather(maps, idm)
-    for m in maps[1:]:
-        assert_equal_maps(maps[0].numpy(), m.numpy(), "async ranks")
-    assert np.mean(~np.isnan(idm.numpy())) > 0.3
+    idm = fl.get_inverse_depth_map()
+    assert_ranks_agree(idm, "async ranks")
+    assert np.mean(~np.isnan(idm)) > 0.3
 
 
 CHECKS = {
@@ -399,6 +535,11 @@ CHECKS = {
     "flame_pallas_halo": flame_check("pallas_halo"),
     "flame_ba": check_flame_ba,
     "flame_async": check_flame_async,
+    "flame_batch_vertex": batch_check("vertex", evict=False),
+    "flame_batch_pallas_halo": batch_check("pallas_halo", evict=True),
+    "flame_batch_ba": check_flame_batch_ba,
+    "flame_batch_auto": check_flame_batch_auto,
+    "checkpoint_batch": check_checkpoint_batch,
 }
 
 
