@@ -130,11 +130,23 @@ Phases (any failure raises and the script exits non-zero):
      make_mesh(1) under torch.use_deterministic_algorithms, on the
      synchronous path and (e) on (d)'s throughput configuration (22
      frames, two batched steps).
+ 13. the bench: python -m flame_tpu_torch.bench in a subprocess at its
+     defaults (640x480, 4096 features, the modes resident, host_upload
+     and resident_ba), as the XGA row (BENCH_RES=1024x768
+     BENCH_FEATS=8192, resident, 6 windows) and with
+     BENCH_SMOOTHER=pallas (resident, 4 windows; K3 on one partition).
+     Each run must exit 0 and end in its JSON line with every mode asked
+     for above 0 fps, coverage >= 0.5, median relative error <= 0.01 and
+     a solver rate above 0; each mode's run launches K2b, K2 and the
+     resolved smoother's kernel (K1, or K3 under "pallas") and never the
+     other, and the solver rate launches that kernel twice (warm-up and
+     timed call). The line is printed beside the card's name and power
+     limit.
 Each path runs with the launch counts set to 0 just before it and read
-just after. The last lines are the kernels' JSON summary (with each
-kernel's bound: the larger of its bytes over 3.35 TB/s and its
-operations over 67 TFLOP/s fp32, from this run's inputs), the
-nvidia-smi line, and {"ok": true, "device": {...}}.
+just after (in the bench's process for phase 13). The last lines are
+the kernels' JSON summary (with each kernel's bound: the larger of its
+bytes over 3.35 TB/s and its operations over 67 TFLOP/s fp32, from this
+run's inputs), the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -765,16 +777,10 @@ PLANE_Z = 5.0
 def scene(n_frames):
     """K, Kinv and the bench's textured plane at 5 m as uint8 frames, the
     camera moving 8 cm per frame."""
+    from flame_tpu_torch.bench import renderer
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
     Kinv = np.linalg.inv(K.astype(np.float64)).astype(np.float32)
-    vv, uu = np.mgrid[0:H, 0:W].astype(np.float64)
-
-    def render(cam_x):
-        X = (uu - W / 2) * PLANE_Z / FX + cam_x
-        Y = (vv - H / 2) * PLANE_Z / FX
-        tex = (128 + 60 * np.sin(21.0 * X + 4.5 * Y) + 35 * np.cos(8.7 * X)
-               + 18 * np.sin(11.6 * Y) + 10 * np.sin(4.2 * X))
-        return np.clip(tex, 0, 255).astype(np.uint8)
+    render = renderer(W, H)
     return K, Kinv, [render(0.08 * i) for i in range(n_frames)]
 
 
@@ -2208,6 +2214,83 @@ def transport_phase(smi):
     return res["launches"] + group_one_nccl_rank(smi)
 
 
+# Phase 13: the bench, python -m flame_tpu_torch.bench, on the card.
+BENCH_TIMEOUT_S = 300  # per run, the kernels already built in _build/
+BENCH_RUNS = (
+    ("VGA x 4096", {}),
+    ("XGA x 8192", {"BENCH_RES": "1024x768", "BENCH_FEATS": "8192",
+                    "BENCH_MODES": "resident", "BENCH_WINDOWS": "6"}),
+    ("VGA x 4096, BENCH_SMOOTHER=pallas",
+     {"BENCH_MODES": "resident", "BENCH_SMOOTHER": "pallas",
+      "BENCH_WINDOWS": "4"}),
+)
+
+
+def bench_run(smi, label, env):
+    """One run of the bench in a subprocess with BENCH_VERBOSE=1. Gates:
+    exit code 0; the last stdout line a JSON object with every mode asked
+    for at value > 0, coverage >= 0.5, median_rel_depth_err <= 0.01 and
+    solver_iters_per_sec > 0; each mode's run through K2b and K2 and
+    through K1 or, under "pallas", K3 (never the other); the solver rate
+    through two launches (warm-up, timed) of that same smoother kernel.
+    Returns each mode's launch counts."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "flame_tpu_torch.bench"], cwd=here,
+        env=dict(os.environ, BENCH_VERBOSE="1", **env), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"13 {label}: exit code {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else None
+    extra = [json.loads(x) for x in proc.stderr.splitlines()
+             if x.startswith("{") and "solver_launches" in x]
+    if not isinstance(line, dict) or len(extra) != 1:
+        raise AssertionError(f"13 {label}: no result line\n"
+                             f"{proc.stdout[-2000:]}")
+    extra = extra[0]
+    print(f"13 {label} ({' '.join(f'{k}={v}' for k, v in env.items())}) "
+          f"in {secs:.1f} s on {smi}: {json.dumps(line)}")
+    print(f"13 {label}: smoother {extra['smoother']}; per mode "
+          + "; ".join(f"{m}: round trip {x['rtt_probe_ms_median']} ms, "
+                      f"windows {x['win_fps']} fps, stages (CUDA events, "
+                      f"median ms) {x['stage_ms_median']}, launches "
+                      f"{x['launches']}" for m, x in extra["modes"].items())
+          + f"; solver rate launches {extra['solver_launches']}")
+    modes = (env.get("BENCH_MODES", "resident,host_upload,resident_ba")
+             .split(","))
+    err = line.get("median_rel_depth_err")
+    if not (list(line["modes"]) == modes
+            and all(line["modes"][m] > 0 for m in modes)
+            and line["coverage"] >= 0.5 and err is not None and err <= 0.01
+            and line["solver_iters_per_sec"] > 0):
+        raise AssertionError(f"13 {label}: result out of bounds")
+    smoother, other = (("halo_smoother", "nltgv2_smoother")
+                       if extra["smoother"] == "pallas"
+                       else ("nltgv2_smoother", "halo_smoother"))
+    runs = [x["launches"] for x in extra["modes"].values()]
+    for m, n in zip(extra["modes"], runs):
+        if min(n[smoother], n["raster_mesh"], n["raster_mesh_batch"]) < 1 \
+                or n[other]:
+            raise AssertionError(f"13 {label} {m}: launches {n}")
+    want = {k: 2 if k == smoother else 0 for k in extra["solver_launches"]}
+    if extra["solver_launches"] != want:
+        raise AssertionError(f"13 {label}: solver rate launches "
+                             f"{extra['solver_launches']} (want {want})")
+    return runs
+
+
+def bench_phase(smi):
+    """Phase 13; returns the launch counts of each run's modes."""
+    runs = []
+    for label, env in BENCH_RUNS:
+        runs += bench_run(smi, label, env)
+    return runs
+
+
 def multichip_layer(smi, g, sharded_ba):
     """Phase 11; returns the launch counts of its main-path runs."""
     dev = g.x.device
@@ -2256,6 +2339,7 @@ def main():
     runs += [vga] + api_residue(smi)
     runs += multichip_layer(smi, g, sharded_ba)
     runs += transport_phase(smi)
+    runs += bench_phase(smi)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",

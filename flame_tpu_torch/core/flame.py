@@ -100,14 +100,16 @@ class _AsyncFetch:
     then a CUDA event. ready() polls the event and get() waits for it, so
     the buffer is never read before the copy has landed. On the CPU the
     copy is taken at once. t_done is when the host first saw the copy
-    complete."""
+    complete. A copy that failed counts as landed, its error kept in _exc
+    and raised by get()."""
 
-    __slots__ = ("_src", "_host", "_event", "t_start", "t_done")
+    __slots__ = ("_src", "_host", "_event", "_exc", "t_start", "t_done")
 
     def __init__(self, packed: torch.Tensor):
         self.t_start = perf_counter()
         self.t_done = None
         self._event = None
+        self._exc = None
         self._src = None
         if packed.device.type == "cuda":
             self._src = packed  # held until the copy has landed
@@ -125,14 +127,25 @@ class _AsyncFetch:
         self._src = None
 
     def ready(self) -> bool:
-        if self.t_done is None and self._event.query():
-            self._landed()
+        if self.t_done is None:
+            try:
+                done = self._event.query()
+            except RuntimeError as e:  # the copy failed on the card
+                self._exc = e
+                done = True
+            if done:
+                self._landed()
         return self.t_done is not None
 
     def get(self) -> np.ndarray:
         if self.t_done is None:
-            self._event.synchronize()
+            try:
+                self._event.synchronize()
+            except RuntimeError as e:
+                self._exc = e
             self._landed()
+        if self._exc is not None:
+            raise self._exc
         return self._host.numpy()
 
 
@@ -275,6 +288,7 @@ class Flame:
         # raster (device scalars, read without a sync per step).
         self._raster_union = collections.deque(maxlen=256)
         self._warned_ba_obs_drop = False
+        self._warned_zombie_exc = False
         self._ba = (ba_window.BundleAdjuster(
             p.ba, self.K, self.Kinv, mesh=getattr(self, "_ba_mesh", None))
             if p.do_ba else None)
@@ -723,14 +737,24 @@ class Flame:
 
     def _reap_zombies(self):
         """Drop shed snapshots whose copy has landed, keeping their
-        latency samples."""
+        latency samples. A failed copy is counted and warned about once,
+        not raised: the pipeline already went on without its bytes, and a
+        fault of the card surfaces at the next live step."""
         live = []
         for pk, stamps in self._zombie_fetches:
-            if self._agree(pk.ready()):
-                pk.get()  # the coordinator's copy landed; wait for ours
-                self._note_latency(pk, stamps)
-            else:
+            if not self._agree(pk.ready()):
                 live.append((pk, stamps))
+                continue
+            if pk._exc is not None:
+                self.stats.add("zombie_fetch_errors", 1)
+                if not self._warned_zombie_exc:
+                    self._warned_zombie_exc = True
+                    print(f"flame_tpu_torch: shed snapshot copy failed "
+                          f"({type(pk._exc).__name__}); see "
+                          f"stats['zombie_fetch_errors']", file=sys.stderr)
+                continue
+            pk.get()  # the coordinator's copy landed; wait for ours
+            self._note_latency(pk, stamps)
         self._zombie_fetches = live
 
     def _in_flight_fetches(self) -> int:
