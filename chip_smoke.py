@@ -19,12 +19,14 @@ Phases (any failure raises and the script exits non-zero):
      more than 160 overlapping triangles: equal NaN masks, values, and
      largest per-tile count;
   5. the batched rasterizer kernel (K2b, raster_mesh_batch: one union
-     binning per tile for all views and the tile passes in one launch)
-     through raster_kernel.rasterize_batch_with_count against the plain
-     union binning + eval_tiles_batch on 8 views of that mesh (shifted
-     and scaled per view, per-view values, one view with invalidated
-     triangles) and on 8 views of a mesh whose densest tile's union count
-     passes 192: equal NaN masks, values and largest union count;
+     binning per tile for all views and the tile passes in one launch,
+     the views of a tile in a cluster of the largest divisor of B up to 8
+     CTAs) through raster_kernel.rasterize_batch_with_count against the
+     plain union binning + eval_tiles_batch on B = 8, 1, 2, 3 and 4 views
+     of that mesh (shifted and scaled per view, per-view values, one view
+     with invalidated triangles) and of a mesh whose densest tile's union
+     count passes 192: equal NaN masks, values and largest union count;
+     the launch timed at each B;
   5b. the halo smoother kernel (K3, a thread-block cluster per partition)
      on that graph in the RCM-banded layout (reach 3, 40 iterations) at
      1, 2, 4 and 8 partitions of the card, with each launch plan (CTAs per
@@ -142,6 +144,26 @@ Phases (any failure raises and the script exits non-zero):
      other, and the solver rate launches that kernel twice (warm-up and
      timed call). The line is printed beside the card's name and power
      limit.
+ 14. pair-mode batching and the structured scene at full width
+     (bench_params(): 640x480, 4096 features, E 12288, T 8192, degree
+     20, 40 iterations). (a) phase 6's plane for 32 frames under async
+     topology with coalesce_uploads at frame_batch 1, 2, 4 and 8 on
+     resident frames and 2 on host frames: K2b once in every update that
+     ran a batched step and in no other, K1 and K2 once per post-Delaunay
+     step, at least 5 / 3 / 2 batched steps at B=2 / 4 / 8, phase 6's map
+     bounds, and
+     tests/test_pair_mode.py's parity bounds (B=2 against B=1: coverage
+     > 0.9x, error < max(2x, 0.01); B=4 against B=2: > 0.85x, < 0.02;
+     host against resident B=2: > 0.9x, < 0.02). (b) the two-plane scene
+     of tests/test_structured_scene.py at FX 400 (its angles at 160x120
+     and FX 100; the texture scaled with FX, see two_planes) for 14
+     frames on the synchronous path with its idepth_init,
+     idepth_var_init and height limits: K1 and K2 once per post-Delaunay
+     step, and its bounds (coverage > 0.3, median relative error < 0.08,
+     contrast across the split > 0.12 with the slab within 15% of 1/2.2,
+     slope ratio in (0.3, 3)), its pixel margins scaled with the width.
+     One line per run: median frame ms, coverage, median error, contrast
+     and slope ratio.
 Each path runs with the launch counts set to 0 just before it and read
 just after (in the bench's process for phase 13). The last lines are
 the kernels' JSON summary (with each kernel's bound: the larger of its
@@ -518,85 +540,108 @@ def check_raster(g, tris_np, W=640, H=480):
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
 
 
-def check_raster_batch(g, tris_np, W=640, H=480, B=8):
-    """K2b through raster_kernel.rasterize_batch_with_count against the
-    plain union binning + eval_tiles_batch on B views of the bench mesh
-    and of an overflowing one; times of the one launch and of the whole
-    call on the bench batch."""
-    from flame_tpu_torch import _kernels
-    from flame_tpu_torch.ops import raster_kernel, rasterize
+K2B_VIEWS = (8, 1, 2, 3, 4)  # K2b's cluster holds the largest divisor <= 8
+
+
+def raster_batch_views(g, tris_np, B, W=640, H=480):
+    """B views of the bench mesh and of an overflowing one: per-view
+    positions translated and slightly scaled, as a camera moving through a
+    batch sees the batch-start mesh; per-view values; one view (the 4th,
+    or the last of fewer) with a tenth of its triangles invalid. The same
+    seed for every B, so B=8's inputs are the ones it always had."""
     dev = g.x.device
     rng = np.random.default_rng(SEED + 2)
-    cap = raster_kernel.MAX_PER_TILE_BATCH
-    err, batches = 0.0, {}
+    batches = {}
     for label, (pos, tris) in (
             ("bench batch", (g.pos, torch.as_tensor(tris_np, device=dev))),
             ("overflow batch", overflow_mesh(dev, W, H))):
         T = tris.shape[0]
-        # Per-view positions: translated and slightly scaled, as a camera
-        # moving through a batch sees the batch-start mesh.
         verts = torch.stack([pos * (1.0 + 0.01 * b) + torch.tensor(
             [3.0 * b, -2.0 * b], device=dev) for b in range(B)])
         vals = torch.as_tensor(rng.uniform(0.5, 2.0, (B, pos.shape[0])),
                                dtype=torch.float32, device=dev)
         valid_np = np.ones((B, T), bool)
-        valid_np[3, rng.integers(0, T, T // 10)] = False
-        valid = torch.as_tensor(valid_np, device=dev)
-        batches[label] = (verts, tris, vals, valid)
-        before = _kernels.LAUNCHES["raster_mesh_batch"]
-        out_k, count_k = raster_kernel.rasterize_batch_with_count(
-            verts, tris, vals, valid, H, W)
-        launches = _kernels.LAUNCHES["raster_mesh_batch"] - before
-        cand = rasterize.tile_candidates_batch(verts, tris, vals, valid, H,
-                                               W, max_per_tile=cap)
-        out_p = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata), H,
-                                 W)
-        count_p = int(cand.max_count)
-        torch.cuda.synchronize()
-        nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
-        if not torch.equal(nan_k, nan_p):
-            raise AssertionError(f"batched raster {label}: NaN masks differ "
-                                 f"at {int((nan_k != nan_p).sum())} pixels")
-        m = ~nan_k
-        e = (out_k[m] - out_p[m]).abs().max().item()
-        if e > K2_ATOL or int(count_k) != count_p or launches != 1:
-            raise AssertionError(
-                f"batched raster {label}: max|kernel-plain| {e} (atol "
-                f"{K2_ATOL}), max union count {int(count_k)} vs plain "
-                f"{count_p}, {launches} launches")
-        if label == "overflow batch" and count_p <= cap:
-            raise AssertionError(f"batched raster {label}: no tile "
-                                 f"overflows")
-        err = max(err, e)
-        print(f"K2b raster_mesh_batch {label} B={B} {W}x{H} T={T}: "
-              f"max|kernel-plain| {e:.3g} (atol {K2_ATOL}), NaN masks "
-              f"equal, coverage {m.float().mean().item():.4f}; max union "
-              f"candidates per tile {int(count_k)} = plain's (max_per_tile "
-              f"{cap}); {launches} launch")
-    verts, tris, vals, valid = batches["bench batch"]
-    packed, bbox = raster_kernel.mesh_inputs(verts, tris, vals, valid)
+        valid_np[min(3, B - 1), rng.integers(0, T, T // 10)] = False
+        batches[label] = (verts, tris, vals,
+                          torch.as_tensor(valid_np, device=dev))
+    return batches
 
-    def launch():
-        return raster_kernel.raster_mesh_batch(packed, bbox, H, W)
 
-    def whole():
-        return raster_kernel.rasterize_batch(verts, tris, vals, valid, H, W)
-    k_ms = _device_ms(launch, 50)
-    k_back_ms = _cuda_ms(launch, 50)
-    e2e_ms = _device_ms(whole, 20)
-    e2e_back_ms = _cuda_ms(whole, 20)
-    p_ms = _cuda_ms(lambda: rasterize.rasterize_batch(
-        verts, tris, vals, valid, H, W, max_per_tile=cap), 3)
-    print(f"K2b time: the launch {k_ms:.4f} ms on the card, union binning "
-          f"included ({k_back_ms:.4f} ms back to back, wrapper included); "
-          f"the whole rasterize_batch call "
-          f"(setup, launch, finish) {e2e_ms:.4f} ms on the card, "
-          f"{e2e_back_ms:.4f} ms back to back; plain rasterize_batch "
-          f"(setup, union binning, eval_tiles_batch) {p_ms:.4f} ms "
-          f"(all {B} views)")
-    b = batch_bound(packed, bbox, launch()[0], H, W)
-    print(f"K2b bound: {b['bound_ms']:.6f} ms ({b['bound_by']})")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **b)
+def check_raster_batch(g, tris_np, W=640, H=480):
+    """K2b through raster_kernel.rasterize_batch_with_count against the
+    plain union binning + eval_tiles_batch at every B of K2B_VIEWS (a
+    cluster of that many CTAs per tile) on B views of the bench mesh and
+    of an overflowing one; the one launch timed at each B, the whole call
+    at B=8. Returns B=8's times and bound, the largest error of all."""
+    from flame_tpu_torch import _kernels
+    from flame_tpu_torch.ops import raster_kernel, rasterize
+    cap = raster_kernel.MAX_PER_TILE_BATCH
+    err, per_b = 0.0, {}
+    for B in K2B_VIEWS:
+        batches = raster_batch_views(g, tris_np, B, W, H)
+        for label, (verts, tris, vals, valid) in batches.items():
+            T = tris.shape[0]
+            before = _kernels.LAUNCHES["raster_mesh_batch"]
+            out_k, count_k = raster_kernel.rasterize_batch_with_count(
+                verts, tris, vals, valid, H, W)
+            launches = _kernels.LAUNCHES["raster_mesh_batch"] - before
+            cand = rasterize.tile_candidates_batch(
+                verts, tris, vals, valid, H, W, max_per_tile=cap)
+            out_p = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata),
+                                     H, W)
+            count_p = int(cand.max_count)
+            torch.cuda.synchronize()
+            nan_k, nan_p = torch.isnan(out_k), torch.isnan(out_p)
+            if not torch.equal(nan_k, nan_p):
+                raise AssertionError(
+                    f"batched raster {label} B={B}: NaN masks differ at "
+                    f"{int((nan_k != nan_p).sum())} pixels")
+            m = ~nan_k
+            e = (out_k[m] - out_p[m]).abs().max().item()
+            if e > K2_ATOL or int(count_k) != count_p or launches != 1:
+                raise AssertionError(
+                    f"batched raster {label} B={B}: max|kernel-plain| {e} "
+                    f"(atol {K2_ATOL}), max union count {int(count_k)} vs "
+                    f"plain {count_p}, {launches} launches")
+            if label == "overflow batch" and count_p <= cap:
+                raise AssertionError(f"batched raster {label} B={B}: no "
+                                     f"tile overflows")
+            err = max(err, e)
+            print(f"K2b raster_mesh_batch {label} B={B} {W}x{H} T={T}: "
+                  f"max|kernel-plain| {e:.3g} (atol {K2_ATOL}), NaN masks "
+                  f"equal, coverage {m.float().mean().item():.4f}; max "
+                  f"union candidates per tile {int(count_k)} = plain's "
+                  f"(max_per_tile {cap}); {launches} launch")
+        verts, tris, vals, valid = batches["bench batch"]
+        packed, bbox = raster_kernel.mesh_inputs(verts, tris, vals, valid)
+
+        def launch():
+            return raster_kernel.raster_mesh_batch(packed, bbox, H, W)
+        k_ms = _device_ms(launch, 50)
+        p_ms = _cuda_ms(lambda: rasterize.rasterize_batch(
+            verts, tris, vals, valid, H, W, max_per_tile=cap), 3)
+        b = batch_bound(packed, bbox, launch()[0], H, W)
+        per_b[B] = dict(ms=k_ms, plain_ms=p_ms, **b)
+        print(f"K2b time B={B}: the launch {k_ms:.4f} ms on the card, union "
+              f"binning included; plain rasterize_batch (setup, union "
+              f"binning, eval_tiles_batch) {p_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+        if B != 8:
+            continue
+        k_back_ms = _cuda_ms(launch, 50)
+
+        def whole():
+            return raster_kernel.rasterize_batch(verts, tris, vals, valid,
+                                                 H, W)
+        e2e_ms = _device_ms(whole, 20)
+        e2e_back_ms = _cuda_ms(whole, 20)
+        print(f"K2b time B=8: the launch {k_back_ms:.4f} ms back to back, "
+              f"wrapper included; the whole rasterize_batch call (setup, "
+              f"launch, finish) {e2e_ms:.4f} ms on the card, "
+              f"{e2e_back_ms:.4f} ms back to back")
+    print("K2b per call by views (the launch on the card, ms): "
+          + ", ".join(f"B={B} {per_b[B]['ms']:.4f}" for B in sorted(per_b)))
+    return dict(max_abs_err=err, **per_b[8])
 
 
 def rcm_tables(g, D, reach):
@@ -797,24 +842,37 @@ def pose(i):
 
 
 def check_map(fl, label):
-    """Coverage and median relative error of the final dense map."""
+    """Coverage and median relative error of the final dense map; gates
+    phase 6's bounds and returns both."""
     idm = fl.get_inverse_depth_map()
-    cov = float(np.mean(~np.isnan(idm)))
-    truth = 1.0 / PLANE_Z
-    err = float(np.median(np.abs(idm[~np.isnan(idm)] - truth) / truth))
+    cov, err = map_errors(idm, 1.0 / PLANE_Z)
     print(f"{label}: coverage {cov:.4f} (>= 0.5), median relative idepth "
           f"error {err:.5f} (<= 0.01); features {fl._n_valid}, vertices "
           f"{fl._n_members}, triangles {fl._n_tris}, edges {fl._n_edges}")
     if not (cov >= 0.5 and err <= 0.01 and np.isfinite(idm[~np.isnan(idm)])
             .all()):
         raise AssertionError(f"{label}: output out of bounds")
+    return cov, err
 
 
-def stage_medians(fl, names, skip):
+def map_errors(idm, truth):
+    """Coverage and median relative idepth error of a map against the
+    true idepth (a number or a per-pixel map)."""
+    ok = ~np.isnan(idm)
+    truth = np.broadcast_to(truth, idm.shape)
+    return (float(ok.mean()),
+            float(np.median(np.abs(idm[ok] - truth[ok]) / truth[ok])))
+
+
+def stage_medians(fl, names, skip, last=None):
+    """Median CUDA-event ms of each stage, less its first skip entries;
+    last: of its last entries only (a run's batched steps, after the
+    single frames of its bootstrap)."""
     dev_ms = fl.stats.device_times_ms()
     parts = []
     for name in names:
         v = dev_ms.get(name, [])
+        v = v[-last:] if last else v
         v = v[skip:] if len(v) > skip else v
         parts.append(f"{name} {np.median(v):.3f}" if v else f"{name} -")
     return ", ".join(parts)
@@ -2291,6 +2349,218 @@ def bench_phase(smi):
     return runs
 
 
+# Phase 14: pair-mode batching and the structured scene at full width.
+PAIR_FRAMES = 32
+# B=8 on the same posture is the reference for the per-frame cost of a
+# step's fixed work (phase 7's B=8 also scores comparison poseframes).
+PAIR_RUNS = ((1, "resident"), (2, "resident"), (4, "resident"), (2, "host"),
+             (8, "resident"))
+STRUCT_FRAMES = 14
+STRUCT_FX = 400.0  # tests/test_structured_scene.py's FX 100 at 160 px wide
+STRUCT_STEP = 0.12  # metres per frame
+# Plane A (world X <= X_SPLIT): Z = ZA0 + KA * X; the slab: Z = ZB.
+ZA0, KA, ZB, X_SPLIT = 4.0, 0.35, 2.2, 0.8
+
+
+def pair_params(frame_batch):
+    """bench_params() with tests/test_pair_mode.py's solver posture: async
+    topology, coalesce_uploads, frame_batch."""
+    import dataclasses
+    p = bench_params()
+    return p.replace(solver=dataclasses.replace(
+        p.solver, async_topology=True, coalesce_uploads=True,
+        frame_batch=frame_batch))
+
+
+def pair_run(smi, B, mode):
+    """14a: phase 7's plane for PAIR_FRAMES frames at frame_batch B with
+    'resident' or 'host' frames. Gates: K2b once in each update that ran
+    a batched step and never in another, K1 and K2 once per
+    post-Delaunay step, at least 5 (B=2), 3 (B=4) or 2 (B=8) batched
+    steps, phase 6's map bounds. Returns the launches and the map's
+    coverage and error."""
+    import flame_tpu_torch
+    from flame_tpu_torch import _kernels
+    K, Kinv, frames = (resident_scene if mode == "resident"
+                       else scene)(PAIR_FRAMES)
+    fl = flame_tpu_torch.Flame(W, H, K, Kinv, pair_params(B))
+    _kernels.reset_launches()
+    frame_ms, t0 = [], None
+    for i in range(PAIR_FRAMES):
+        if t0 is None:
+            t0 = time.perf_counter()
+        k2b = _kernels.LAUNCHES["raster_mesh_batch"]
+        d0 = fl._dispatches
+        fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+        stepped = fl._dispatches - d0
+        if _kernels.LAUNCHES["raster_mesh_batch"] - k2b != stepped:
+            raise AssertionError(f"14a B={B} {mode} frame {i}: K2b "
+                                 f"launches for {stepped} batched steps")
+        if stepped or not fl._batch_pending:
+            torch.cuda.synchronize()
+            if stepped or B == 1:
+                frame_ms.append(1000 * (time.perf_counter() - t0) / B)
+            t0 = None
+    label = f"14a frame_batch={B} ({mode} frames)"
+    # The first steps include one-time allocations; B=8 has three.
+    skip = {1: 4, 2: 2, 4: 2, 8: 1}[B]
+    # Read before check_map, whose flush would run single frames.
+    stages = stage_medians(fl, ("raster_batch", "update_idepths",
+                                "sync_graph", "smoother", "raster"), skip,
+                           last=fl._dispatches if B > 1 else None)
+    cov, err = check_map(fl, f"{label} {W}x{H}, "
+                             f"{fl.params.feature_capacity} features, "
+                             f"{PAIR_FRAMES} frames")
+    launches = dict(_kernels.LAUNCHES)
+    n_post = len(fl.stats.device_times_ms().get("sync_graph", []))
+    want_steps = {1: 0, 2: 5, 4: 3, 8: 2}[B]
+    if (fl._dispatches > 0) != (B > 1) or fl._dispatches < want_steps \
+            or launches["raster_mesh_batch"] != fl._dispatches:
+        raise AssertionError(f"{label}: {fl._dispatches} batched steps, "
+                             f"K2b launches {launches['raster_mesh_batch']}")
+    if n_post < 1 or any(launches[k] != n_post for k in (
+            "nltgv2_smoother", "raster_mesh")) or launches["halo_smoother"]:
+        raise AssertionError(f"{label}: launches {launches} for {n_post} "
+                             f"post-Delaunay steps")
+    wall = ("batched step wall incl. synchronize / B" if B > 1
+            else "update wall incl. synchronize")
+    print(f"{label}: median frame {np.median(frame_ms[skip:]):.3f} ms "
+          f"({wall}, {len(frame_ms) - skip} of {len(frame_ms)}), coverage "
+          f"{cov:.4f}, median error {err:.5f}, contrast -, slope ratio -; "
+          f"{fl._dispatches} batched steps, {n_post} post-Delaunay steps, "
+          f"launches {launches} on {smi}")
+    print(f"{label}: median ms per {'batched step' if B > 1 else 'frame'}"
+          f" (CUDA events): {stages}")
+    return launches, cov, err
+
+
+def pair_phase(smi):
+    """14a: frame_batch 1, 2, 4 and 8 on resident frames and 2 on host
+    frames, held to tests/test_pair_mode.py's parity bounds: B=2 against
+    B=1 (coverage > 0.9x, error < max(2x, 0.01)), B=4 against B=2 (>
+    0.85x, < 0.02), host B=2 against resident B=2 (> 0.9x, < 0.02)."""
+    res = {run: pair_run(smi, *run) for run in PAIR_RUNS}
+    (_, c1, e1), (_, c2, e2) = res[(1, "resident")], res[(2, "resident")]
+    (_, c4, e4), (_, ch, eh) = res[(4, "resident")], res[(2, "host")]
+    gates = [("B=2 vs B=1", c2 > 0.9 * c1 and e2 < max(2 * e1, 0.01)),
+             ("B=4 vs B=2", c4 > 0.85 * c2 and e4 < 0.02),
+             ("host B=2 vs resident B=2", ch > 0.9 * c2 and eh < 0.02)]
+    print("14a parity: " + "; ".join(f"{n} {'ok' if g else 'FAILED'}"
+                                     for n, g in gates))
+    if not all(g for _, g in gates):
+        raise AssertionError("14a: pair-mode parity out of bounds")
+    return [r[0] for r in res.values()]
+
+
+def two_planes(cam_x, width=W, height=H, fx=STRUCT_FX, tex_scale=None):
+    """tests/test_structured_scene.py's ray-cast scene from camera
+    (cam_x, 0, 0): a uint8 frame and the true idepth. The texture's
+    frequencies scale with tex_scale, by default fx / 100, so that a pixel
+    sees the test's texture, as bench.py's plane scales its own: at the
+    test's world frequencies a pixel at 320x240 sees half the gradient,
+    and both packages then detect ~115 features and lose the slab
+    (python tests/torch_structured_witness.py)."""
+    vv, uu = np.mgrid[0:height, 0:width].astype(np.float64)
+    dx = (uu - width / 2) / fx
+    dy = (vv - height / 2) / fx
+    ta = (ZA0 + KA * cam_x) / (1.0 - KA * dx)
+    xb = cam_x + dx * ZB
+    use_b = xb > X_SPLIT  # the closer slab occludes where it exists
+    t = np.where(use_b, ZB, ta)
+    s = fx / 100.0 if tex_scale is None else tex_scale
+    X = s * np.where(use_b, xb, cam_x + dx * ta)
+    Y = s * dy * t
+    tex = (128 + 60 * np.sin(4.1 * X + 0.9 * Y) + 35 * np.cos(1.73 * X)
+           + 18 * np.sin(2.31 * Y) + 10 * np.sin(0.83 * X))
+    return (np.clip(tex, 0, 255).astype(np.uint8),
+            (1.0 / t).astype(np.float32))
+
+
+def split_measures(idm, truth, width=W, fx=STRUCT_FX):
+    """The JAX test's discontinuity and slant measures at the last camera
+    position, its pixel margins scaled with width / 160 (the same
+    angles): the medians left and right of the split, and the slope of
+    the far plane's column medians against the truth's."""
+    s = width / 160.0
+    u_split = (X_SPLIT - STRUCT_STEP * (STRUCT_FRAMES - 1)) / ZB * fx \
+        + width / 2
+    lm = float(np.nanmedian(idm[:, :max(int(u_split - 12 * s), 1)]))
+    rm = float(np.nanmedian(idm[:, min(int(u_split + 12 * s), width - 1):]))
+    cols = np.arange(int(10 * s), int(u_split - 16 * s))
+    col_med = np.array([np.nanmedian(idm[:, c]) for c in cols])
+    t_cols = np.array([np.nanmedian(truth[:, c]) for c in cols])
+    ok = ~np.isnan(col_med)
+    slope = np.polyfit(cols[ok], col_med[ok], 1)[0] \
+        / np.polyfit(cols[ok], t_cols[ok], 1)[0]
+    return lm, rm, float(slope), int(ok.sum())
+
+
+def structured_scene(smi):
+    """14b: the two-plane scene at 640x480 (FX 400) for STRUCT_FRAMES
+    frames, every second one a poseframe, with bench_params() and the
+    test's idepth_init, idepth_var_init and height limits on the
+    synchronous path. Gates: K1 and K2 once per post-Delaunay step; the
+    JAX test's bounds: coverage > 0.3, median relative error < 0.08,
+    contrast > 0.12 with the slab within 15% of 1 / ZB, the slope's sign
+    and a slope ratio in (0.3, 3) over more than 10 columns."""
+    import flame_tpu_torch
+    from flame_tpu_torch import _kernels
+    K = np.array([[STRUCT_FX, 0, W / 2], [0, STRUCT_FX, H / 2], [0, 0, 1]],
+                 np.float32)
+    Kinv = np.linalg.inv(K.astype(np.float64)).astype(np.float32)
+    params = bench_params().replace(idepth_init=0.05, idepth_var_init=0.25,
+                                    min_height=-100.0, max_height=100.0)
+    fl = flame_tpu_torch.Flame(W, H, K, Kinv, params)
+    frames = [two_planes(STRUCT_STEP * i)[0] for i in range(STRUCT_FRAMES)]
+    per_step = step_launches(False)
+    _kernels.reset_launches()
+    frame_ms = []
+    for i in range(STRUCT_FRAMES):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        ok = fl.update(i / 30.0, i, (np.array([1.0, 0, 0, 0]),
+                                     np.array([STRUCT_STEP * i, 0, 0])),
+                       frames[i], i % 2 == 0)
+        torch.cuda.synchronize()
+        if ok:
+            frame_ms.append(1000 * (time.perf_counter() - t0))
+            ds = {k: _kernels.LAUNCHES[k] - before[k] for k in per_step}
+            if ds != per_step:
+                raise AssertionError(f"14b frame {i}: launches {ds} (want "
+                                     f"{per_step})")
+    launches = dict(_kernels.LAUNCHES)
+    idm = fl.get_inverse_depth_map()
+    truth = two_planes(STRUCT_STEP * (STRUCT_FRAMES - 1))[1]
+    cov, err = map_errors(idm, truth)
+    lm, rm, slope, n_cols = split_measures(idm, truth)
+    skip = 2
+    print(f"14b structured scene {W}x{H} (FX {STRUCT_FX:g}), "
+          f"{params.feature_capacity} features, "
+          f"{STRUCT_FRAMES} frames ({len(frame_ms)} meshed): median frame "
+          f"{np.median(frame_ms[skip:]):.3f} ms (update wall incl. "
+          f"synchronize, meshed frames {skip + 1}-{len(frame_ms)}), coverage "
+          f"{cov:.4f} (> 0.3), median error {err:.5f} (< 0.08), contrast "
+          f"{rm - lm:.4f} (> 0.12; left {lm:.4f}, slab {rm:.4f} within 15% "
+          f"of {1 / ZB:.4f}), slope ratio {slope:.3f} (0.3-3, {n_cols} "
+          f"columns); features {fl._n_valid}, vertices {fl._n_members}; "
+          f"launches {launches} on {smi}")
+    print("14b median ms per stage (CUDA events): " + stage_medians(
+        fl, ("update_idepths", "triangulate", "sync_graph", "smoother",
+             "raster"), skip))
+    if not (len(frame_ms) >= STRUCT_FRAMES // 2 and cov > 0.3
+            and err < 0.08 and rm - lm > 0.12
+            and abs(rm - 1 / ZB) <= 0.15 / ZB and n_cols > 10
+            and 0.3 < slope < 3.0
+            and np.isfinite(idm[~np.isnan(idm)]).all()):
+        raise AssertionError("14b: structured scene out of bounds")
+    return launches
+
+
+def pair_and_structure(smi):
+    """Phase 14; returns the launch counts of its runs."""
+    return pair_phase(smi) + [structured_scene(smi)]
+
+
 def multichip_layer(smi, g, sharded_ba):
     """Phase 11; returns the launch counts of its main-path runs."""
     dev = g.x.device
@@ -2340,6 +2610,7 @@ def main():
     runs += multichip_layer(smi, g, sharded_ba)
     runs += transport_phase(smi)
     runs += bench_phase(smi)
+    runs += pair_and_structure(smi)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",

@@ -11,7 +11,7 @@ Tolerances:
   * reanchor_features, against JAX's run eagerly (XLA's compiled form
     fuses the projection and lands a few ulp away): validity and anchor
     slots exactly equal, the rest atol 1e-5;
-  * batch_step, against JAX's batch_step run eagerly under
+  * batch_step at B = 2 and 4, against JAX's batch_step run eagerly under
     jax.disable_jit() (its jitted form rounds differently and moves the
     measured idepth of about a tenth of the features, ROADMAP.md s3):
     decision masks may differ on at most 0.5% of entries, floats agree to
@@ -215,15 +215,15 @@ def test_reanchor_features_matches_jax(state, shift):
 
 
 # ---------------------------------------------------------------------------
-# batch_step: frames 7-10 (8 and 10 are poseframes) in one step.
+# batch_step: frames 7.. in one step of B = 2 (frame 8 a poseframe) or 4
+# (8 and 10).
 # ---------------------------------------------------------------------------
 
-B = 4
 
-
-@pytest.fixture(scope="module")
-def batched(state):
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda b: f"B{b}")
+def batched(state, request):
     s = state
+    B = request.param
     jf, jp = s["jf"], s["jp"]
     fids = list(range(7, 7 + B))
     pf_flags = [i % 2 == 0 for i in fids]
@@ -266,11 +266,12 @@ def batched(state):
         _t(sync_t), _t(jf._idepthmap),
         convert.topology_from_words(words, jp.triangle_capacity,
                                     jp.edge_capacity, "cpu"), W, H)
-    return jout, tout, pf_slots
+    return jout, tout, pf_slots, pf_flags
 
 
 def test_batch_step_tracking_matches_eager_jax(batched):
-    jout, tout, _ = batched
+    jout, tout, _, pf_flags = batched
+    B = len(pf_flags)
     (_, _, jfe, jcu, jmem, jst, _, jpk) = jout[:8]
     (_, _, tfe, tcu, tmem, tst, tpk) = tout[:7]
     assert int(np.asarray(jfe.valid).sum()) > 50
@@ -290,7 +291,7 @@ def test_batch_step_tracking_matches_eager_jax(batched):
 
 
 def test_batch_step_stack_and_maps_match_eager_jax(batched):
-    jout, tout, pf_slots = batched
+    jout, tout, pf_slots, pf_flags = batched
     jstack, tstack = jout[1], tout[1]
     np.testing.assert_array_equal(tstack.frame_id.numpy(),
                                   np.asarray(jstack.frame_id))
@@ -298,7 +299,7 @@ def test_batch_step_stack_and_maps_match_eager_jax(batched):
                                   np.asarray(jstack.valid))
     _close(jstack.q, tstack.q, rtol=0, atol=0)
     # Each poseframe of the batch stashed its own per-frame dense map.
-    for b in (1, 3):
+    for b in np.nonzero(pf_flags)[0]:
         jm = np.asarray(jstack.idepthmap[pf_slots[b]])
         tm = tstack.idepthmap[pf_slots[b]].numpy()
         both = _flips(np.isnan(jm), np.isnan(tm)) & ~np.isnan(jm)

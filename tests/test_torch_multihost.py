@@ -34,8 +34,9 @@ checks on global_mesh() (one partition per rank):
     ShardedFlame (1024 features: 8 rank rows, 2 per rank = the reach),
     single-frame and batched.
 
-Each worker has its own 120 s limit and destroys its group; the pytest
-process initializes none. The other tolerances: the edge-sharded
+Each check, the group's start-up and its shutdown have their own 120 s
+limit on every rank (_launch), and each worker destroys its group; the
+pytest process initializes none. The other tolerances: the edge-sharded
 smoother within 1e-5 of nltgv2.smooth after 10 iterations, the sharded
 BA within 1e-4 of schur.solve_window on t, q and lm and within 1e-2
 relative on the cost (tests/test_multihost.py's).
@@ -59,6 +60,8 @@ import os
 import socket
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -67,7 +70,7 @@ pytest.importorskip("torch")
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-WORKER_TIMEOUT_S = 120
+CHECK_TIMEOUT_S = 120
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_multihost_worker.py")
 CHECKS = ("psum", "smooth", "ba", "grid", "halo", "kernel", "step",
@@ -82,11 +85,15 @@ BATCH_FRAMES = 16
 
 
 def _launch(out_dir, n, checks):
-    """Exit codes and output of n workers running checks."""
+    """Exit codes and output of n workers running checks. Each worker
+    prints "proc <rank> <check> START" and "... OK" around each check;
+    the group's start-up, each check and the shutdown after the last
+    one have their own CHECK_TIMEOUT_S on every rank, and a rank that
+    runs past it ends the launch with a line naming the check."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    procs = []
+    procs, logs, marks = [], [], []
     for pid in range(n):
         env = dict(os.environ, COORD=f"127.0.0.1:{port}", PID_IDX=str(pid),
                    NPROC=str(n), CHECKS=",".join(checks),
@@ -95,16 +102,43 @@ def _launch(out_dir, n, checks):
         procs.append(subprocess.Popen(
             [sys.executable, WORKER], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT))
+        logs.append([])
+        marks.append(["start-up", time.monotonic()])
+    readers = [threading.Thread(target=_read_marks, args=(p, log, mark))
+               for p, log, mark in zip(procs, logs, marks)]
+    for r in readers:
+        r.start()
+    late = None
+    while late is None and any(p.poll() is None for p in procs):
+        now = time.monotonic()
+        late = next((pid for pid, p in enumerate(procs) if p.poll() is None
+                     and now - marks[pid][1] > CHECK_TIMEOUT_S), None)
+        time.sleep(0.1)
+    if late is not None:
+        for p in procs:
+            p.kill()
+        logs[late].append(f"proc {late}: {marks[late][0]} ran past its "
+                          f"{CHECK_TIMEOUT_S} s limit\n")
     outs = []
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=WORKER_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            out, _ = p.communicate()
-        outs.append((p.returncode, out.decode()))
+    for p, r, log in zip(procs, readers, logs):
+        p.wait()
+        r.join()
+        outs.append((p.returncode, "".join(log)))
     return outs
+
+
+def _read_marks(proc, log, mark):
+    """Collect a worker's output; mark: [what it runs, since when], moved
+    on at each check's START and OK line."""
+    for raw in proc.stdout:
+        line = raw.decode(errors="replace")
+        log.append(line)
+        words = line.split()
+        if len(words) == 4 and words[0] == "proc" \
+                and words[3] in ("START", "OK"):
+            mark[:] = [words[2] if words[3] == "START"
+                       else f"the shutdown after {words[2]}",
+                       time.monotonic()]
 
 
 @pytest.fixture(scope="module")

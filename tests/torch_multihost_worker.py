@@ -1,11 +1,12 @@
 """One rank of tests/test_torch_multihost.py: joins a gloo group of NPROC
 CPU processes at COORD as rank PID_IDX, runs the named CHECKS on
-multihost.global_mesh() and prints "proc <rank> <check> OK" for each
-check that passed, then "proc <rank> OK". The coordinator writes the
+multihost.global_mesh() and prints "proc <rank> <check> START" before
+each check and "proc <rank> <check> OK" after each one that passed, then
+"proc <rank> OK". The coordinator writes the
 final dense maps of the ShardedFlame runs into OUT_DIR (<check>_<n>.npy)
 for the comparison with the JAX package in the pytest process.
 
-Run by the test with its own 120 s limit:
+Run by the test, which gives each check its own 120 s limit:
     COORD=127.0.0.1:PORT NPROC=2 PID_IDX=0 CHECKS=psum,halo OUT_DIR=DIR \
         FLAME_REPO=REPO python tests/torch_multihost_worker.py
 
@@ -558,6 +559,7 @@ def main():
         else:
             raise AssertionError("a mesh on a device gloo cannot carry")
         for name in os.environ["CHECKS"].split(","):
+            print(f"proc {rank} {name} START", flush=True)
             CHECKS[name](mesh)
             print(f"proc {rank} {name} OK", flush=True)
     finally:
