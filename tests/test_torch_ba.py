@@ -15,7 +15,11 @@ goes through flame_tpu.ba and flame_tpu_torch.ba:
   the rows, refined pixels within 1e-3 px, weights within 1e-5;
 - pack_ba_outputs -> split_packed bit-equal for one frame and for a
   batch of three; build_window and ingest_snapshot equal; the guarded
-  idepth write-back equal."""
+  idepth write-back equal;
+- ba.do_rematch off and ba.aniso_weights on (and both): the port's
+  _rematch_and_weigh against the JAX package's same two steps, then the
+  whole packed window solve (window._solve_packed) against the JAX
+  package's at solve_window's tolerances."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -397,3 +401,92 @@ def test_apply_idepths_matches_jax():
                                  torch.as_tensor(trip)).idepth_mu.numpy()
     np.testing.assert_array_equal(tout, jout)
     assert (tout != fe["idepth_mu"]).sum() > 10
+
+
+BA_BRANCHES = {"default": {}, "no_rematch": dict(do_rematch=False),
+               "aniso_weights": dict(aniso_weights=True),
+               "no_rematch_aniso_weights": dict(do_rematch=False,
+                                                aniso_weights=True)}
+
+
+def _branch_solve(d, branch):
+    """window._solve_packed (decode, _rematch_and_weigh, the Schur
+    solve) with the branch's BAParams in both packages on one packed
+    upload of window_np, n_fixed=2; JAX through its img_pack=None
+    route. Returns (jax flat, port flat, port BAParams, buf)."""
+    bp = JBAParams(window_size=P, **BA_BRANCHES[branch])
+    tbp = convert.params_from_dict({"ba": dataclasses.asdict(bp)}).ba
+    slot_w = np.arange(P, dtype=np.int32)
+    buf = jwindow._pack_problem(_jax_problem(d), slot_w)
+    tbuf = window._pack_problem(
+        convert.ba_problem_from_numpy(d["problem"], "cpu"), slot_w)
+    np.testing.assert_array_equal(tbuf, buf)
+    jout = jwindow._solve_packed(bp, jnp.asarray(d["K"]),
+                                 jnp.asarray(d["Kinv"]), jnp.asarray(buf),
+                                 jnp.asarray(d["imgs_pad"]), None, PAD, 2,
+                                 P, L, M)
+    tout = window._solve_packed(tbp, torch.as_tensor(d["K"]),
+                                torch.as_tensor(d["Kinv"]),
+                                torch.as_tensor(buf),
+                                torch.as_tensor(d["imgs_pad"]), PAD, 2, P, L,
+                                M)
+    return np.asarray(jout), tout.numpy(), tbp, buf
+
+
+@pytest.fixture(scope="module")
+def default_branch_solve(window_np):
+    """The port's packed solve at the default do_rematch / aniso_weights."""
+    return _branch_solve(window_np, "default")[1]
+
+
+@pytest.mark.parametrize("branch", ["no_rematch", "aniso_weights",
+                                    "no_rematch_aniso_weights"])
+def test_rematch_and_weigh_branch_matches_jax(window_np, default_branch_solve,
+                                              branch):
+    """ba.do_rematch off and ba.aniso_weights on: the port's whole
+    _rematch_and_weigh against the JAX package's same two steps of its
+    _solve_packed (ba/window.py's do_rematch and aniso_weights blocks),
+    then the whole packed window solve against JAX's at
+    test_solve_window_matches_jax's tolerances (poses within 1e-5,
+    quaternion entries and metres; landmark idepths and the cost within
+    1e-4 relative); and the branch changes the port's own solve."""
+    d = window_np
+    jflat, tflat, tbp, buf = _branch_solve(d, branch)
+    problem, slot_w = window._decode_packed(torch.as_tensor(buf), P, L, M)
+    tprob, tsqrt = window._rematch_and_weigh(
+        tbp, torch.as_tensor(d["K"]), torch.as_tensor(d["Kinv"]), problem,
+        slot_w, torch.as_tensor(d["imgs_pad"]), PAD)
+    p, o = d["problem"], d["problem"]["obs"]
+    ju = o["u_obs"]
+    if tbp.do_rematch:
+        ju = np.asarray(jrematch.rematch_observations(
+            *[jnp.asarray(a) for a in (
+                d["K"], d["Kinv"], d["imgs_pad"])], PAD,
+            *[jnp.asarray(a) for a in (
+                p["q"], p["t"], o["anchor_idx"], o["obs_idx"],
+                o["anchor_idx"], o["obs_idx"], o["u_ref"], o["u_obs"],
+                o["lm_idx"], p["lm_idepth"], o["valid"])],
+            radius=tbp.rematch_radius, max_cost=tbp.rematch_max_cost,
+            min_eig=tbp.rematch_min_eig)[0])
+    tu = tprob.obs.u_obs.numpy()
+    moved_j, moved_t = (ju != o["u_obs"]).any(1), (tu != o["u_obs"]).any(1)
+    assert (moved_j != moved_t).mean() <= 0.01
+    np.testing.assert_allclose(tu[moved_j & moved_t],
+                               ju[moved_j & moved_t], atol=1e-3)
+    if tbp.aniso_weights:
+        jw, _ = _sqrtw(d)
+        np.testing.assert_allclose(tsqrt.numpy(), np.asarray(jw), atol=1e-5)
+    else:
+        assert tsqrt is None
+    if not tbp.do_rematch:
+        np.testing.assert_array_equal(tu, o["u_obs"])
+
+    # The whole solve, against JAX's and against the port's default.
+    assert np.abs(tflat - default_branch_solve).max() > 1e-3
+    np.testing.assert_allclose(tflat[4 * P:7 * P], jflat[4 * P:7 * P],
+                               atol=1e-5)
+    np.testing.assert_allclose(tflat[:4 * P], jflat[:4 * P], atol=1e-5)
+    lv = p["lm_valid"]
+    lm_t, lm_j = tflat[7 * P:7 * P + L], jflat[7 * P:7 * P + L]
+    np.testing.assert_allclose(lm_t[lv], lm_j[lv], rtol=1e-4)
+    np.testing.assert_allclose(tflat[-1], jflat[-1], rtol=1e-4)

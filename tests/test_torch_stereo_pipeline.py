@@ -5,7 +5,8 @@ A JAX Flame runs the tests/test_flame_e2e.py scene (uint8 frames) for a
 few frames; its state is carried into the port through convert.py and
 both packages run the next stage on it: track_project_sync,
 detect_packed, insert_detections, _graph_sync_inner (with its
-rescale_data / init_with_prediction / check_sticky_obstacles branches),
+rescale_data / init_with_prediction / check_sticky_obstacles /
+adaptive_data_weights branches),
 _post_delaunay_inner and mesh_outputs.
 
 Tolerances: decision masks (status, member, valid, covered pixels) may
@@ -246,7 +247,8 @@ def _graph_close(jg, tg, member):
 
 @pytest.mark.parametrize("variant", ["default", "rescale_data",
                                      "init_with_prediction",
-                                     "check_sticky_obstacles"])
+                                     "check_sticky_obstacles",
+                                     "adaptive_data_weights"])
 def test_graph_sync_matches_jax(state, tracked, post_inputs, variant):
     s = state
     kw = {} if variant == "default" else {variant: True}
@@ -282,6 +284,9 @@ def test_graph_sync_matches_jax(state, tracked, post_inputs, variant):
         convert.curr_features_from_numpy(_np(jcu), "cpu"), tgeo,
         torch.tensor(scale), tt, torch.as_tensor(idm))
     _graph_close(jg, tg, jmem)
+    if variant == "adaptive_data_weights":  # 1/var, not the default 1
+        w = tg.data_weight.numpy()[np.asarray(jmem)]
+        assert w.size > 50 and (np.abs(w - 1.0) > 0.5).all()
 
 
 def test_post_delaunay_matches_jax(state, tracked, post_inputs):

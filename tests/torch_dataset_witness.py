@@ -2,7 +2,7 @@
 port, on the CPU, on the input of chip_smoke.py's 640x480 dataset cell.
 
     python tests/torch_dataset_witness.py [--frames 48] [--last 16]
-        [--only map|ate]
+        [--only map|ate] [--ba-branch no_rematch|aniso_weights] [--mini]
 
 mini-TUM is generated at 640x480 (fx=517.3, 15 mm / 0.3 deg pose noise,
 noise_seed=1) and run through load_tum + run_sequence (a poseframe every
@@ -15,7 +15,10 @@ with examples/run_dataset.py's Params and the port's re-match radius
        --last frames, so poseframes and the frames between them can be
        told apart);
   ate  noisy poses with solver.deterministic: without BA, with BA at the
-       examples' re-match radius of 3 px, and with BA at the port's.
+       examples' re-match radius of 3 px, and with BA at the port's;
+       --ba-branch adds BA at the port's radius with ba.do_rematch off
+       or ba.aniso_weights on; --mini runs these at 256x192 on
+       DATASETS.md's configuration instead (tests/test_dataset_accuracy.py).
 
 Prints one line per run (median relative error and coverage of the maps,
 ATE of the poseframes) and the peak resident memory. Takes a few minutes:
@@ -33,6 +36,7 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax  # noqa: E402
 
@@ -63,27 +67,38 @@ NOISE = dict(pose_noise_t=0.015, pose_noise_deg=0.3, noise_seed=1)
 POSEFRAME_EVERY = 2
 
 
-def jax_params(do_ba, radius, deterministic):
-    """examples/run_dataset.py's Params with the given re-match radius."""
+def jax_params(do_ba, radius, deterministic, **ba):
+    """examples/run_dataset.py's Params with the given re-match radius
+    (and other BAParams fields given as ba)."""
     return Params(min_height=-1e6, max_height=1e6, do_ba=do_ba,
-                  ba=BAParams(rematch_radius=radius),
+                  ba=BAParams(rematch_radius=radius, **ba),
                   solver=SolverParams(n_iters_per_frame=60,
                                       async_topology=True,
                                       deterministic=deterministic),
                   debug_quiet=True)
 
 
-def make_flame(pkg, K, params):
+def mini_params(do_ba, deterministic, **ba):
+    """tests/test_dataset_accuracy.py's Params (DATASETS.md's 256x192
+    configuration) with other BAParams fields given as ba."""
+    from test_dataset_accuracy import make_params
+    p = make_params(do_ba)
+    return dataclasses.replace(
+        p, ba=dataclasses.replace(p.ba, **ba),
+        solver=dataclasses.replace(p.solver, deterministic=deterministic))
+
+
+def make_flame(pkg, K, params, size=(W, H)):
     if pkg == "jax":
         Kj = np.asarray(K, np.float32)
-        return JaxFlame(W, H, Kj, jcamera.inv_k(Kj), params)
+        return JaxFlame(*size, Kj, jcamera.inv_k(Kj), params)
     Kt = torch.as_tensor(K, dtype=torch.float32)
     return flame_tpu_torch.Flame(
-        W, H, Kt, tcamera.inv_k(Kt),
+        *size, Kt, tcamera.inv_k(Kt),
         convert.params_from_dict(dataclasses.asdict(params)), device="cpu")
 
 
-def run(pkg, root, K, n_frames, params, poses, per_frame):
+def run(pkg, root, K, n_frames, params, poses, per_frame, size=(W, H)):
     """Feed the sequence as run_sequence does; with per_frame, read the
     map after each frame of per_frame (a set of indices)."""
     ds = jdatasets if pkg == "jax" else tdatasets
@@ -92,7 +107,7 @@ def run(pkg, root, K, n_frames, params, poses, per_frame):
         for fr, (q, t) in zip(frames, poses):
             fr.q = np.asarray(q, np.float32)
             fr.t = np.asarray(t, np.float32)
-    fl = make_flame(pkg, K, params)
+    fl = make_flame(pkg, K, params, size)
     maps = {}
     t0 = time.perf_counter()
     for i, fr in enumerate(frames):
@@ -117,12 +132,48 @@ def stats(fl):
                                           "ba_writeback_skips")}
 
 
+def mini_ate(branch, name):
+    """The ate runs on DATASETS.md's 256x192 mini-TUM (chip_smoke.py's
+    phase 9 cell): noisy poses without BA, with BA, and with BA and the
+    branch, deterministic, in both packages."""
+    w, h, fx, n = 256, 192, 210.0, 24
+    with tempfile.TemporaryDirectory() as root:
+        meta = jsynthetic.generate_mini_tum(root, n_frames=n, width=w,
+                                            height=h, fx=fx, **NOISE)
+        print(f"mini-TUM {w}x{h}, fx={fx}, {n} frames, poseframe every "
+              f"{POSEFRAME_EVERY}", flush=True)
+        for pkg in ("jax", "torch"):
+            base = None
+            runs = [("noisy", False, {}), ("noisy+BA", True, {})]
+            if branch:
+                runs.append((f"noisy+BA {name}", True, branch))
+            for label, do_ba, ba in runs:
+                fl, _, sec = run(pkg, root, meta["K"], n,
+                                 mini_params(do_ba, True, **ba),
+                                 meta["noisy"], set(), size=(w, h))
+                a = pf_ate(fl, meta["gt"])
+                base = base or a
+                print(f"{pkg} {label} deterministic: ATE {1000 * a:.3f} mm "
+                      f"({a / base:.4f} of no BA); {stats(fl)}; "
+                      f"{sec:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=48)
     ap.add_argument("--last", type=int, default=16)
     ap.add_argument("--only", choices=("map", "ate"))
+    ap.add_argument("--ba-branch", choices=("no_rematch", "aniso_weights"),
+                    help="add a noisy run with BA at the port's radius "
+                         "and ba.do_rematch=False or ba.aniso_weights=True")
+    ap.add_argument("--mini", action="store_true",
+                    help="the ate runs at 256x192 (24 frames, fx=210) with "
+                         "tests/test_dataset_accuracy.py's Params instead")
     args = ap.parse_args()
+    branch = {None: {}, "no_rematch": dict(do_rematch=False),
+              "aniso_weights": dict(aniso_weights=True)}[args.ba_branch]
+    if args.mini:
+        return mini_ate(branch, args.ba_branch)
     torch.set_num_threads(4)
     n = args.frames
     radius = rematch_radius(FX)
@@ -158,11 +209,15 @@ def main():
                               flush=True)
             if args.only != "map":
                 base = None
-                for name, do_ba, r in (("noisy", False, radius),
-                                       ("noisy+BA r3", True, 3),
-                                       (f"noisy+BA r{radius}", True, radius)):
+                runs = [("noisy", False, radius, {}),
+                        ("noisy+BA r3", True, 3, {}),
+                        (f"noisy+BA r{radius}", True, radius, {})]
+                if branch:
+                    runs.append((f"noisy+BA r{radius} {args.ba_branch}",
+                                 True, radius, branch))
+                for name, do_ba, r, ba in runs:
                     fl, _, sec = run(pkg, root, meta["K"], n,
-                                     jax_params(do_ba, r, True),
+                                     jax_params(do_ba, r, True, **ba),
                                      meta["noisy"], set())
                     a = pf_ate(fl, meta["gt"])
                     base = base or a
