@@ -1,0 +1,13 @@
+"""K1, the smoother kernel (csrc/nltgv2_smoother.cu): its share of the
+roofline, in percent: the mean over the traced slice's calls of the
+least time the card could take (the larger of the call's bytes over 3.35
+TB/s and its operations over 67 TFLOP/s fp32; roofline/k1.py counts them
+from the call's inputs) over the mean device time of its launches in the
+profiler's trace."""
+
+
+def read(ctx):
+    r = ctx.rooflines.get("k1")
+    if r is None or r["time_s"] <= 0:
+        return None
+    return 100.0 * r["bound_s"] / r["time_s"]
