@@ -200,12 +200,8 @@ def measure_mode(params, frames_np, resident: bool, n_warm: int,
     (probe + 1).item()
 
     # Latency samples restart here; snapshots staged during the warm-up
-    # and still in flight lose their entry stamps (bench.py:190-196).
-    fl._packed_queue = type(fl._packed_queue)(
-        (pk, fr, meta, [None] * len(stamps))
-        for pk, fr, meta, stamps in fl._packed_queue)
-    fl._zombie_fetches = [(pk, None) for pk, _stamps in fl._zombie_fetches]
-    fl._latency_samples.clear()
+    # and still in flight are not sampled (bench.py:190-196).
+    fl._restart_latency()
 
     win_fps, rtt_probes = [], []
     k = 0

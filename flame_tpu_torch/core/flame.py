@@ -54,6 +54,21 @@ assembly and applies at once).
 
 utils/checkpoint.py saves and restores the whole state.
 
+Every update() call is the root span "update" of the stats tracker
+(utils/stats.py), tagged with its frame id and poseframe flag; the
+stages run as spans inside it ("upload", "frame_creation",
+"update_idepths", "triangulate" with "snapshot_wait" and "delaunay",
+"topo_upload", "sync_graph" with "smoother" and "raster"; on the batched
+path "batch_step", carrying the batch's frame ids, with "raster_batch";
+"snapshot_wait" for the async join; "ba"). A buffered frame that a later
+call runs (the next update() once batching disengages, or a map read)
+has its own "update" span inside that call's span. The worker thread's
+"delaunay" span carries the snapshot's frame ids and a link to the span
+that started it; get_inverse_depth_map() is the span "map_read". A
+landed snapshot is recorded as "snapshot_flight", from its copy's start
+to its landing, and latency_percentiles() reads the update()->map
+latency from these spans.
+
 Under ShardedFlame over a process group (parallel/orchestrator.py) the
 feature and graph state hold this rank's block only. The stages that
 read the whole state gather it explicitly (sharding.gather_rows) and
@@ -276,12 +291,12 @@ class Flame:
         self._warned_capacity = False
         # Async and batch state that outlives clear(): snapshots whose copy
         # cannot be cancelled (shed or cleared; they keep their place in
-        # the in-flight count until they land), update() entry stamps by
-        # frame id, update->map latency samples, dispatch counters.
+        # the in-flight count until they land), the first span seq that
+        # counts for update->map latency, dispatch counters.
         self._packed_queue = collections.deque()
         self._zombie_fetches = []
-        self._entry_stamp: Dict[int, float] = {}
-        self._latency_samples = []
+        self._latency_seq0 = 0
+        self._newest_frame = None
         self._dispatches = 0
         self._coalesce = False
         # Per-step largest per-tile union-candidate count of the batched
@@ -331,11 +346,10 @@ class Flame:
         # Queued transfers cannot be cancelled: they become zombies. The
         # BA store, snapshot and solve in flight stay, as in the JAX
         # package: the write-back guards reject the cleared features.
-        for pk, _frame, _meta, _stamps in self._packed_queue:
+        for pk, _frame, _meta, _fids in self._packed_queue:
             self._zombie_fetches.append((pk, None))
         self._packed_queue.clear()
         self._sheds_since_consume = 0
-        self._entry_stamp.clear()
         self._feat_valid_np = np.zeros(N, bool)
         self._n_valid = 0
 
@@ -351,20 +365,23 @@ class Flame:
         to the automatic selector under params.auto_poseframe, else means
         False (the reference's caller decides, flame.h:145-147). Returns
         False while bootstrapping or when the frame cannot produce a mesh;
-        a frame buffered for a batch returns True."""
+        a frame buffered for a batch returns True. The call is the root
+        span "update" of the frame's spans."""
+        self._newest_frame = frame_id
+        with self.stats.span("update", frames=(frame_id,),
+                             poseframe=is_poseframe, timing="update") as sp:
+            return self._update(sp, frame_id, pose, img, is_poseframe)
+
+    def _update(self, sp, frame_id: int, pose, img,
+                is_poseframe: Optional[bool]) -> bool:
         p = self.params
-        self.stats.tick("update")
-        self._entry_stamp[frame_id] = perf_counter()
-        if len(self._entry_stamp) > 4096:
-            # Frames whose dispatch staged no snapshot never pop a stamp.
-            for k in list(self._entry_stamp)[:2048]:
-                del self._entry_stamp[k]
         self._poll_fetches()
         q_np = t_np = None
         if is_poseframe is None and p.auto_poseframe:
             q_np, t_np = _f64(pose[0]), _f64(pose[1])
             is_poseframe = self._want_poseframe(q_np, t_np)
         is_poseframe = bool(is_poseframe)
+        sp.poseframe = is_poseframe
         q = self._as_pose_tensor(pose[0])
         t = self._as_pose_tensor(pose[1])
 
@@ -378,7 +395,6 @@ class Flame:
             self._batch_pending.append((frame_id, q, t, img, is_poseframe,
                                         q_np, t_np))
             if len(self._batch_pending) < int(p.solver.frame_batch):
-                self.stats.tock("update")
                 return True
             frames = self._batch_pending
             self._batch_pending = []
@@ -434,9 +450,9 @@ class Flame:
         pending = self._batch_pending
         self._batch_pending = []
         for fid, q, t, img, is_pf, q_np, t_np in pending:
-            self.stats.tick("update")
-            self._update_single(fid, q, t, img, is_pf, q_np, t_np)
-        self.stats.tick("update")
+            with self.stats.span("update", frames=(fid,), poseframe=is_pf,
+                                 timing="update"):
+                self._update_single(fid, q, t, img, is_pf, q_np, t_np)
 
     def _prepare_upload(self, img) -> torch.Tensor:
         """The frame's image on the device. With coalesce_uploads, async
@@ -450,9 +466,10 @@ class Flame:
             host = self._pending_topo
             self._pending_topo = None
             self._stage(host)
-        if isinstance(img, torch.Tensor):
-            return img.to(self.device)
-        return torch.as_tensor(np.asarray(img), device=self.device)
+        with self.stats.span("upload"):
+            if isinstance(img, torch.Tensor):
+                return img.to(self.device)
+            return torch.as_tensor(np.asarray(img), device=self.device)
 
     def _update_single(self, frame_id: int, q, t, img, is_poseframe: bool,
                        q_np=None, t_np=None) -> bool:
@@ -479,15 +496,17 @@ class Flame:
                 if p.solver.async_topology and self._packed_queue:
                     # Consume the newest snapshot for a current mirror; the
                     # older ones become zombies until their copies land.
-                    pk, pk_frame, pk_meta, pk_stamps = self._packed_queue[-1]
-                    for old, _fr, old_meta, old_stamps in \
+                    pk, pk_frame, pk_meta, pk_fids = self._packed_queue[-1]
+                    for old, _fr, old_meta, old_fids in \
                             list(self._packed_queue)[:-1]:
-                        self._zombie_fetches.append((old, old_stamps))
+                        self._zombie_fetches.append((old, old_fids))
                         self._note_ba_obs_drop(sum(old_meta[1]))
                     self._packed_queue.clear()
                     self._sheds_since_consume = 0
-                    self._consume_packed(pk.get(), pk_frame, pk_meta)
-                    self._note_latency(pk, pk_stamps)
+                    with self.stats.span("snapshot_wait"):
+                        pk_np = pk.get()
+                    self._consume_packed(pk_np, pk_frame, pk_meta)
+                    self._note_latency(pk, pk_fids)
                 if self._n_valid == 0:
                     self._bootstrap_detect(self._curr_pf_slot)
             if self._n_valid == 0 and not self._packed_queue:
@@ -523,8 +542,7 @@ class Flame:
                         int(p.solver.topology_lag), 1):
                 self._packed_queue.append((
                     _AsyncFetch(packed), self.num_imgs,
-                    ([frame_id], [is_poseframe]),
-                    [self._entry_stamp.pop(frame_id, None)]))
+                    ([frame_id], [is_poseframe]), [frame_id]))
             elif is_poseframe:
                 self._note_ba_obs_drop(1)
             # Adopt a finished triangulation (forced while nothing is
@@ -536,8 +554,9 @@ class Flame:
                     self._run_post_delaunay(member, curr, self._staged)
         else:
             with self.stats.timed("triangulate"):
-                ok = self._consume_packed(pipeline.as_numpy_packed(packed),
-                                          self.num_imgs,
+                with self.stats.span("snapshot_wait"):
+                    pk_np = pipeline.as_numpy_packed(packed)
+                ok = self._consume_packed(pk_np, self.num_imgs,
                                           ([frame_id], [is_poseframe]))
                 if ok:
                     self._adopt_tri_result(force=True)
@@ -587,31 +606,35 @@ class Flame:
             if det:
                 self._feat_id_counter += self._add_cap
 
-        if self._pending_topo is not None:
-            # A fresh triangulation applies in this step; the graph's edges
-            # move past the single path's staged topology.
-            self._last_topo_host = self._pending_topo
-            self._pending_topo = None
-            self._topo_dev = None
-            self._staged = None
-        if self._topo_dev is None:
-            self._topo_dev = self._upload(self._last_topo_host)
-        topo = self._topo_dev
-        if self._img_mode(frames[0][3]) == "resident":
-            imgs = [f[3] for f in frames]
-        else:  # one upload for the batch's images
-            imgs = list(torch.as_tensor(np.stack([f[3] for f in frames]),
-                                        device=dev))
+        # The step's spans carry every frame id of the batch.
+        with self.stats.span("batch_step", frames=tuple(fids)):
+            if self._pending_topo is not None:
+                # A fresh triangulation applies in this step; the graph's
+                # edges move past the single path's staged topology.
+                self._last_topo_host = self._pending_topo
+                self._pending_topo = None
+                self._topo_dev = None
+                self._staged = None
+            if self._topo_dev is None:
+                self._topo_dev = self._upload(self._last_topo_host)
+            topo = self._topo_dev
+            with self.stats.span("upload"):
+                if self._img_mode(frames[0][3]) == "resident":
+                    imgs = [f[3] for f in frames]
+                else:  # one upload for the batch's images
+                    imgs = list(torch.as_tensor(
+                        np.stack([f[3] for f in frames]), device=dev))
 
-        (fnew, self._stack, self._feats, self._curr, member,
-         self._last_stats_dev, packed, self._graph, self._vtx_idepths,
-         self._vtx_normals, self._tri_validity, self._idepthmap,
-         self._graph_scale, self._coverage, max_union) = pipeline.batch_step(
-            p, self.K, self.Kinv, self._stack, self._feats, self._graph,
-            self._graph_scale, imgs, fids, qs, ts, pf_flags, det_flags,
-            pf_slots, id_bases, prev_q, prev_t, sync_q, sync_t,
-            self._idepthmap, topo.dev, self.width, self.height,
-            mesh=self._sharding_mesh, timed=self.stats.timed)
+            (fnew, self._stack, self._feats, self._curr, member,
+             self._last_stats_dev, packed, self._graph, self._vtx_idepths,
+             self._vtx_normals, self._tri_validity, self._idepthmap,
+             self._graph_scale, self._coverage,
+             max_union) = pipeline.batch_step(
+                p, self.K, self.Kinv, self._stack, self._feats, self._graph,
+                self._graph_scale, imgs, fids, qs, ts, pf_flags, det_flags,
+                pf_slots, id_bases, prev_q, prev_t, sync_q, sync_t,
+                self._idepthmap, topo.dev, self.width, self.height,
+                mesh=self._sharding_mesh, timed=self.stats.timed)
         self._raster_union.append(max_union)
         self._fprev = self._fnew
         self._fnew = fnew
@@ -629,7 +652,7 @@ class Flame:
                 < max(int(p.solver.topology_lag), 1):
             self._packed_queue.append((
                 _AsyncFetch(packed), self.num_imgs, (fids, pf_flags),
-                [self._entry_stamp.pop(f, None) for f in fids]))
+                list(fids)))
         else:
             self._note_ba_obs_drop(sum(pf_flags))
         self._adopt_tri_result(force=bool(p.solver.deterministic))
@@ -639,7 +662,7 @@ class Flame:
         return self._done(True, frames=B)
 
     def _done(self, result: bool, frames: int = 1) -> bool:
-        ms = self.stats.tock("update")
+        ms = self.stats.elapsed_ms("update")
         if result and ms > 0:
             self.stats.ema("fps_max", frames * 1000.0 / ms)
         return result
@@ -695,14 +718,14 @@ class Flame:
         det = bool(p.solver.deterministic)
         joined_any = False
         while self._packed_queue:
-            pk, pk_frame, pk_meta, pk_stamps = self._packed_queue[0]
+            pk, pk_frame, pk_meta, pk_fids = self._packed_queue[0]
             ready = self._agree(pk.ready())
             if not (det or ready):
                 if self.num_imgs - pk_frame < join_age:
                     break  # young in-flight head: let it land on its own
                 if self._sheds_since_consume < shed_budget:
                     self._packed_queue.popleft()
-                    self._zombie_fetches.append((pk, pk_stamps))
+                    self._zombie_fetches.append((pk, pk_fids))
                     self._sheds_since_consume += 1
                     self.stats.add("packed_sheds", 1)
                     self.stats.ema("fetch_ready_frac", 0.0, alpha=0.2)
@@ -711,16 +734,15 @@ class Flame:
                 if joined_any:
                     break
             self._packed_queue.popleft()
-            self.stats.tick("fetch_packed")
             self.stats.ema("fetch_ready_frac", 1.0 if ready else 0.0,
                            alpha=0.2)
-            pk_np = pk.get()
+            with self.stats.span("snapshot_wait", timing="fetch_packed"):
+                pk_np = pk.get()
             joined_any = True
             self._sheds_since_consume = 0
-            self.stats.tock("fetch_packed")
             self.stats.ema("fetch_latency_ms", 1e3 * (pk.t_done - pk.t_start),
                            alpha=0.2)
-            self._note_latency(pk, pk_stamps)
+            self._note_latency(pk, pk_fids)
             if not self._consume_packed(pk_np, pk_frame, pk_meta):
                 return False
         self._reap_zombies()
@@ -730,9 +752,9 @@ class Flame:
         """Query the events of the snapshots in flight, so that each
         landing time (and its latency sample) is known to within one
         update() call even while frames only buffer."""
-        for pk, _frame, _meta, _stamps in self._packed_queue:
+        for pk, _frame, _meta, _fids in self._packed_queue:
             pk.ready()
-        for pk, _stamps in self._zombie_fetches:
+        for pk, _fids in self._zombie_fetches:
             pk.ready()
 
     def _reap_zombies(self):
@@ -741,9 +763,9 @@ class Flame:
         not raised: the pipeline already went on without its bytes, and a
         fault of the card surfaces at the next live step."""
         live = []
-        for pk, stamps in self._zombie_fetches:
+        for pk, fids in self._zombie_fetches:
             if not self._agree(pk.ready()):
-                live.append((pk, stamps))
+                live.append((pk, fids))
                 continue
             if pk._exc is not None:
                 self.stats.add("zombie_fetch_errors", 1)
@@ -754,7 +776,7 @@ class Flame:
                           f"stats['zombie_fetch_errors']", file=sys.stderr)
                 continue
             pk.get()  # the coordinator's copy landed; wait for ours
-            self._note_latency(pk, stamps)
+            self._note_latency(pk, fids)
         self._zombie_fetches = live
 
     def _in_flight_fetches(self) -> int:
@@ -762,26 +784,51 @@ class Flame:
         self._reap_zombies()
         return len(self._packed_queue) + len(self._zombie_fetches)
 
-    def _note_latency(self, pk: _AsyncFetch, stamps):
-        """update()->map latency samples of the frames of a landed
-        snapshot: it was copied after its step's dense map, so its landing
-        bounds when the map existed."""
-        if pk.t_done is None or not stamps:
+    def _note_latency(self, pk: _AsyncFetch, fids):
+        """A landed snapshot's flight, from its copy's start to when the
+        host first saw it land, as the span "snapshot_flight" with the ids
+        of the frames whose update()->map latency it bounds (fids; None
+        for a snapshot cleared in flight): it was copied after its step's
+        dense map, so its landing bounds when the map existed."""
+        if pk.t_done is None:
             return
-        for te in stamps:
-            if te is not None:
-                self._latency_samples.append(1e3 * (pk.t_done - te))
-        if len(self._latency_samples) > 8192:
-            del self._latency_samples[:-4096]
+        self.stats.record(
+            "snapshot_flight", round(pk.t_start * 1e9), round(pk.t_done * 1e9),
+            frames=tuple(f for f in fids or () if f is not None),
+            link=self.stats.current())
+
+    def _restart_latency(self):
+        """Latency samples restart here: frames handed to update() before
+        now are not sampled."""
+        self._latency_seq0 = self.stats.next_seq()
+
+    def _latency_ms(self) -> list:
+        """update()->map latency samples in ms: for each frame of each
+        snapshot_flight span in the tracker's ring, the flight's end less
+        the start of the frame's first update span, both since the last
+        _restart_latency()."""
+        seq0 = self._latency_seq0
+        entry, flights = {}, []
+        for s in self.stats.spans.spans():
+            if s.seq < seq0:
+                continue
+            if s.name == "update":
+                f = s.frames[0]
+                if s.start_ns < entry.get(f, s.start_ns + 1):
+                    entry[f] = s.start_ns
+            elif s.name == "snapshot_flight":
+                flights.append(s)
+        return [1e-6 * (s.end_ns - entry[f]) for s in flights
+                for f in s.frames if f in entry]
 
     def latency_percentiles(self, qs=(50.0, 95.0)):
         """Percentiles (default p50, p95) of the update()->map latency in
         ms, from the async path's landed snapshots; None without
         samples."""
-        if not self._latency_samples:
+        samples = self._latency_ms()
+        if not samples:
             return None
-        return [float(v) for v in
-                np.percentile(np.asarray(self._latency_samples), qs)]
+        return [float(v) for v in np.percentile(np.asarray(samples), qs)]
 
     def _consume_packed(self, packed: np.ndarray,
                         packed_frame: Optional[int] = None,
@@ -811,8 +858,12 @@ class Flame:
         # A triangulation still pending is adopted first, never dropped.
         self._adopt_tri_result(force=bool(p.solver.deterministic)
                                or self._tri_pending is not None)
+        # The triangulation's span carries the snapshot's frame ids and a
+        # link to the span that started it (on the worker it is a root).
+        frames = None if meta is None else tuple(meta[0])
+        link = self.stats.current()
         self._tri_pending = (_AsyncWork(
-            lambda pk=packed: self._host_triangulate(pk),
+            lambda pk=packed: self._host_triangulate(pk, frames, link),
             inline=not p.solver.async_topology), packed_frame)
         return True
 
@@ -863,16 +914,22 @@ class Flame:
         self._n_edges = topo.dev["n_edges"]
         self._edges_np = topo.host[1]
 
-    def _host_triangulate(self, pk: np.ndarray):
+    def _host_triangulate(self, pk: np.ndarray, frames=None, link: int = -1):
         """Delaunay over the members of the packed snapshot, plus the
         sorted unique edges and their slot ranks, or under a banded
         smoother the RCM order of the members and the edges' ranks in it
         (core/flame.py:1001-1175 of the JAX package). Numpy and ctypes
         only (it may run on the worker thread). None when fewer than 3
-        distinct members or the member set is degenerate."""
+        distinct members or the member set is degenerate. It runs in the
+        span "delaunay" on its thread, tagged with frames (the snapshot's
+        frame ids) and link."""
+        with self.stats.span("delaunay", frames=frames, link=link,
+                             timing="delaunay"):
+            return self._triangulate_members(pk)
+
+    def _triangulate_members(self, pk: np.ndarray):
         p = self.params
         V = p.feature_capacity
-        self.stats.tick("delaunay")
         member_slots = np.nonzero((pk[:, 2] & pipeline.PACK_MEMBER) > 0)[0]
         # Members on the same 1/32-px position would make Delaunay
         # ill-posed; keep the first of each.
@@ -884,7 +941,6 @@ class Flame:
             member_slots = member_slots[np.sort(uniq_idx)]
         self.stats.set("members_deduped", n_dup)
         if member_slots.shape[0] < 3:
-            self.stats.tock("delaunay")
             return None
         xy = pk[member_slots, :2].astype(np.float32) \
             * (1.0 / pipeline.PACK_XY_SCALE)
@@ -895,7 +951,6 @@ class Flame:
         if tri is None or tri.triangles.shape[0] == 0:
             # Degenerate (collinear) member set: keep the old topology.
             self.stats.add("triangulate_degenerate", 1)
-            self.stats.tock("delaunay")
             return None
 
         tris_slots = member_slots[tri.triangles]
@@ -968,7 +1023,6 @@ class Flame:
                   f"degree={n_deg_dropped}); raise triangle/edge capacity, "
                   f"pallas_reach (band) or max_vertex_degree (degree)",
                   file=sys.stderr)
-        self.stats.tock("delaunay")
         return tris_slots, edges_sorted, ranks, perm
 
     def _run_post_delaunay(self, member, curr, topo: _Topo):
@@ -1121,8 +1175,12 @@ class Flame:
         return float(self._coverage) if self._coverage is not None else 0.0
 
     def get_inverse_depth_map(self) -> np.ndarray:
-        self._flush_batch()
-        return self._idepthmap.cpu().numpy()
+        """The dense map, read in the span "map_read" (tagged with the
+        newest frame handed to update())."""
+        frames = () if self._newest_frame is None else (self._newest_frame,)
+        with self.stats.span("map_read", frames=frames):
+            self._flush_batch()
+            return self._idepthmap.cpu().numpy()
 
     def get_filtered_inverse_depth_map(self) -> np.ndarray:
         """The dense map over the triangles that pass the triangle filters

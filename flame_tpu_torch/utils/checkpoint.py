@@ -49,7 +49,7 @@ def _quiesce(fl) -> None:
     no queued snapshots, no triangulation and no BA solve in flight."""
     fl._flush_batch()
     while fl._packed_queue:
-        pk, pk_frame, pk_meta, _stamps = fl._packed_queue.popleft()
+        pk, pk_frame, pk_meta, _fids = fl._packed_queue.popleft()
         fl._sheds_since_consume = 0
         if not fl._consume_packed(pk.get(), pk_frame, pk_meta):
             break  # too few features: the instance cleared itself
@@ -288,12 +288,11 @@ def load(path: str, fl) -> None:
     # Transfers queued on this instance cannot be cancelled: they stay in
     # flight as zombies (as after clear()). The shed and latency state
     # belong to the overwritten run.
-    for pk, _frame, _meta, _stamps in fl._packed_queue:
+    for pk, _frame, _meta, _fids in fl._packed_queue:
         fl._zombie_fetches.append((pk, None))
     fl._packed_queue.clear()
     fl._sheds_since_consume = 0
-    fl._entry_stamp.clear()
-    fl._latency_samples = []
+    fl._restart_latency()
 
     ba = fl._ba
     if ba is not None:

@@ -172,14 +172,22 @@ def test_restore_tracks_inflight_transfers_as_zombies(tmp_path):
     fl2._packed_queue.append((StuckFetch(), 3, ([3], [False]), [None]))
     fl2._packed_queue.append((StuckFetch(), 4, ([4], [False]), [None]))
     fl2._sheds_since_consume = 7
-    fl2._latency_samples = [1.0, 2.0]
-    fl2._entry_stamp[99] = 0.0
+    # A latency sample of fl2's own run: frame 99's update span and its
+    # snapshot's landing.
+    with fl2.stats.span("update", frames=(99,)):
+        pass
+
+    class Landed:
+        t_start = t_done = 1e-9 * fl2.stats.spans.spans()[-1].end_ns
+
+    fl2._note_latency(Landed(), [99])
+    assert fl2.latency_percentiles() is not None
     checkpoint.load(path, fl2)
 
     assert not fl2._packed_queue
     assert len(fl2._zombie_fetches) == 2
     assert fl2._in_flight_fetches() == 2
     assert fl2._sheds_since_consume == 0
-    assert fl2._latency_samples == [] and fl2._entry_stamp == {}
+    assert fl2.latency_percentiles() is None
     run_frames(fl2, 8, 10)
     assert fl2.num_data_updates == fl.num_data_updates + 2

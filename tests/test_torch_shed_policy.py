@@ -75,13 +75,15 @@ def test_young_inflight_head_is_left_alone():
 def test_ready_head_consumed_and_resets_shed_counter():
     fl = make_policy_flame()
     fl._sheds_since_consume = 3
+    # Frame 10 entered update() at 99.95 s (its update span's start).
+    fl.stats.record("update", round(99.95e9), round(99.96e9), frames=(10,))
     fl._packed_queue.append((FakeFetch(ready=True), 10, ([10], [True]),
-                             [99.95]))
+                             [10]))
     fl.num_imgs = 11
     assert fl._drain_packed_queue()
     assert fl._consumed == [10]
     assert fl._sheds_since_consume == 0
-    # t_done (100.05) - the entry stamp (99.95) = 100 ms.
+    # t_done (100.05) - frame 10's update span start (99.95) = 100 ms.
     p50, p95 = fl.latency_percentiles()
     assert abs(p50 - 100.0) < 1e-6 and abs(p95 - 100.0) < 1e-6
 
