@@ -188,6 +188,19 @@ Phases (any failure raises and the script exits non-zero):
      solve as a CUDA graph against its eager run (phase 5c's check, rtol
      1e-4); and the share of float32 roots torch.sqrt rounds otherwise
      than numpy on the card.
+ 16. the tracking step from CUDA graphs (core/step_graph.py): 40 frames
+     of the synchronous posture (bench_params() with
+     photo_error_num_pfs=30) and of the batched one (throughput_params()
+     with deterministic=True; frame_batch 8), poseframes every 2nd frame,
+     each run twice on phase 6's scene: replaying the graphs, and with
+     step_graph.steps_for patched to None (the eager path). The feature
+     state, the current features, the stats and every map read after a
+     frame or a batch must be bit-equal between the two; the graphed run
+     must count one capture per graph, a replay for every call of
+     pipeline.track_project_sync and _detect_and_insert (wrapped by
+     name, as the benchmark wraps tracking) and no eager call. Prints
+     update_idepths' host ms per frame (its spans, the first 4 calls
+     left out), eager against graphed, and its CUDA-event ms.
 Each path runs with the launch counts set to 0 just before it and read
 just after (in the bench's process for phase 13). The last lines are
 the kernels' JSON summary (with each kernel's bound: the larger of its
@@ -2902,6 +2915,94 @@ def branch_phase(smi, ba_cells):
     return runs
 
 
+def graph_run(smi, label, params, frames, K, Kinv, graphed):
+    """One phase-16 run: the state after every map read, update_idepths'
+    host ms per frame and CUDA-event ms, the graph counters and the
+    number of tracking and detection calls."""
+    import contextlib
+    from unittest import mock
+    from flame_tpu_torch.core import pipeline, step_graph
+    fl = make_flame(K, Kinv, params, False)
+    B = int(params.solver.frame_batch)
+    calls = {"track_project_sync": 0, "_detect_and_insert": 0}
+
+    def counted(name):
+        orig = getattr(pipeline, name)
+
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return orig(*a, **kw)
+        return mock.patch.object(pipeline, name, wrapper)
+    reads = []
+    with contextlib.ExitStack() as ctx:
+        for name in calls:
+            ctx.enter_context(counted(name))
+        if not graphed:
+            ctx.enter_context(mock.patch.object(step_graph, "steps_for",
+                                                lambda stack: None))
+        for i in range(len(frames)):
+            fl.update(i / 30.0, i, pose(i), frames[i], i % 2 == 0)
+            if (i + 1) % B == 0:
+                m = fl.get_inverse_depth_map()
+                state = [m] + [t.cpu().numpy() for t in (
+                    [getattr(fl._feats, f) for f in (
+                        "xy", "pf_slot", "idepth_mu", "idepth_var", "valid",
+                        "num_updates", "num_dropouts", "search_status",
+                        "feat_id")]
+                    + [fl._curr.xy, fl._curr.idepth, fl._curr.var,
+                       fl._curr.valid, fl._last_stats_dev])]
+                reads.append(state)
+    torch.cuda.synchronize()
+    host = [s.ms / B for s in fl.stats.spans.spans()
+            if s.name == "update_idepths"][4:]
+    dev = fl.stats.device_times_ms().get("update_idepths", [])[4:]
+    counts = {f"{k}_graph_{c}": int(fl.stats.stats(f"{k}_graph_{c}"))
+              for k in ("track", "detect") for c in step_graph.COUNTERS}
+    print(f"16 {label} {'graphed' if graphed else 'eager'}: update_idepths "
+          f"host {np.median(host):.3f} ms a frame (median of {len(host)} "
+          f"calls), CUDA events {np.median(dev) / B:.3f} ms a frame; calls "
+          f"{calls}; counters {counts}; {fl._n_valid} features live, "
+          f"coverage {float(np.mean(~np.isnan(reads[-1][0]))):.4f} on {smi}")
+    return reads, calls, counts, float(np.median(host))
+
+
+def graph_phase(smi, n_frames=40):
+    """Phase 16: each posture eager and replayed from CUDA graphs."""
+    import dataclasses
+    K, Kinv, frames = scene(n_frames)
+    postures = (
+        ("synchronous", bench_params().replace(photo_error_num_pfs=30)),
+        ("batched", throughput_params().replace(solver=dataclasses.replace(
+            throughput_params().solver, deterministic=True))))
+    out = {}
+    for label, params in postures:
+        eager, _, _, ms_e = graph_run(smi, label, params, frames, K, Kinv,
+                                      False)
+        graphed, calls, counts, ms_g = graph_run(smi, label, params, frames,
+                                                 K, Kinv, True)
+        if len(eager) != len(graphed) or not eager:
+            raise AssertionError(f"16 {label}: {len(eager)} eager reads, "
+                                 f"{len(graphed)} graphed")
+        for k, (a, b) in enumerate(zip(eager, graphed)):
+            for x, y in zip(a, b):
+                if not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                    raise AssertionError(f"16 {label}: read {k} differs "
+                                         f"between eager and graphed")
+        want = dict(track_graph_captures=1,
+                    track_graph_replays=calls["track_project_sync"],
+                    track_graph_eager=0, detect_graph_captures=1,
+                    detect_graph_replays=calls["_detect_and_insert"],
+                    detect_graph_eager=0)
+        if counts != want or calls["_detect_and_insert"] < 1:
+            raise AssertionError(f"16 {label}: counters {counts}, want "
+                                 f"{want}")
+        print(f"16 {label}: {len(graphed)} reads bit-equal, eager against "
+              f"graphed; update_idepths host ms a frame {ms_e:.3f} eager, "
+              f"{ms_g:.3f} graphed ({ms_e / ms_g:.1f}x)")
+        out[label] = (ms_e, ms_g)
+    return out
+
+
 def multichip_layer(smi, g, sharded_ba):
     """Phase 11; returns the launch counts of its main-path runs."""
     dev = g.x.device
@@ -2958,6 +3059,7 @@ def main():
     runs += bench_phase(smi)
     runs += pair_and_structure(smi)
     runs += branch_phase(smi, {"256x192": ba_small, "640x480": ba_vga})
+    graph_phase(smi)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     kernels = [
         dict(name="nltgv2_smoother", route="cuda",

@@ -23,7 +23,6 @@ weighted the same way, solved with the observation-sharded assembly
 (flame_tpu/ba/window.py:560-597).
 """
 
-import gc
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,7 +32,7 @@ from flame_tpu_torch.ba import rematch
 from flame_tpu_torch.ba import residuals as resid
 from flame_tpu_torch.ba import schur
 from flame_tpu_torch.core import frame as frame_mod
-from flame_tpu_torch.core import pipeline
+from flame_tpu_torch.core import pipeline, step_graph
 from flame_tpu_torch.parallel import sharding
 from flame_tpu_torch.params import BAParams
 from flame_tpu_torch.utils import evaluation
@@ -337,40 +336,20 @@ def _flat_result(q, t, lm, cost) -> torch.Tensor:
 
 
 class _GraphedSolve:
-    """solve(*bufs) captured as one CUDA graph: replaying it copies bufs
-    into the captured inputs and returns the captured outputs, which the
-    next replay overwrites (the stream orders the fetch of one result
-    before the next replay). The warm-up run on a side stream sets up the
-    allocator and the solver library before the capture."""
+    """solve(*bufs) captured as one CUDA graph (step_graph.cuda_capture):
+    replaying it copies bufs into the captured inputs and returns the
+    captured outputs, which the next replay overwrites (the stream orders
+    the fetch of one result before the next replay)."""
 
     def __init__(self, solve, *bufs: torch.Tensor):
         self.bufs = tuple(b.clone() for b in bufs)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            solve(*self.bufs)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        # A garbage collection inside the capture would run the destructors
-        # of unreachable CUDA objects (a dropped Flame's graphs and
-        # events), whose calls invalidate the capture: none runs until it
-        # ends (torch.cuda.graph no longer collects before it begins).
-        # The Delaunay worker thread makes no CUDA calls; thread_local
-        # leaves other threads' calls unchecked all the same.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
-                self.out = solve(*self.bufs)
-        finally:
-            if collecting:
-                gc.enable()
+        self.out, self._replay = step_graph.cuda_capture(
+            lambda: solve(*self.bufs))
 
     def __call__(self, *bufs: torch.Tensor):
         for dst, src in zip(self.bufs, bufs):
             dst.copy_(src)
-        self.graph.replay()
+        self._replay()
         return self.out
 
 

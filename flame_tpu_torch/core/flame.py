@@ -67,7 +67,9 @@ has its own "update" span inside that call's span. The worker thread's
 that started it; get_inverse_depth_map() is the span "map_read". A
 landed snapshot is recorded as "snapshot_flight", from its copy's start
 to its landing, and latency_percentiles() reads the update()->map
-latency from these spans.
+latency from these spans. On the card tracking and poseframe detection
+replay CUDA graphs (core/step_graph.py); the counters
+track_graph_{captures,replays,eager} and detect_graph_* count them.
 
 Under ShardedFlame over a process group (parallel/orchestrator.py) the
 feature and graph state hold this rank's block only. The stages that
@@ -97,7 +99,7 @@ import numpy as np
 import torch
 
 from flame_tpu_torch.ba import window as ba_window
-from flame_tpu_torch.core import detection, keyframe, pipeline
+from flame_tpu_torch.core import detection, keyframe, pipeline, step_graph
 from flame_tpu_torch.core import frame as frame_mod
 from flame_tpu_torch.geometry import epipolar
 from flame_tpu_torch.mesh import delaunay
@@ -662,6 +664,8 @@ class Flame:
         return self._done(True, frames=B)
 
     def _done(self, result: bool, frames: int = 1) -> bool:
+        for k, v in step_graph.counts(self._stack).items():
+            self.stats.set(k, v)
         ms = self.stats.elapsed_ms("update")
         if result and ms > 0:
             self.stats.ema("fps_max", frames * 1000.0 / ms)

@@ -21,10 +21,22 @@ import math
 import numpy as np
 import torch
 
+from flame_tpu_torch.core.step_graph import row
 from flame_tpu_torch.geometry import se3
 
 SCORE_LOWEST = float(-torch.finfo(torch.float32).max)
 CLIP_CAP = 12  # >= 4 corners + one added vertex per rect half-plane clip
+
+
+def _filled(values, device) -> torch.Tensor:
+    """torch.tensor(values, float32) written on the device by fills: a
+    CUDA graph's capture admits no copy from host memory."""
+    vals = np.asarray(values, np.float32)
+    out = torch.empty(vals.shape, dtype=torch.float32, device=device)
+    flat = out.view(-1)
+    for i, v in enumerate(vals.reshape(-1).tolist()):
+        flat[i].fill_(v)
+    return out
 
 
 def _prev_index(n: torch.Tensor, M: int) -> torch.Tensor:
@@ -111,10 +123,9 @@ def score_batch(width: int, height: int, K, Kinv, q_rel, t_rel,
     ok = s_orient >= 0.5 * (math.cos(math.radians(60.0)) + 1.0)
 
     # Overlap: the new image's corners at max_depth, in the candidate.
-    corners = torch.tensor([[0.0, 0.0, 1.0], [0.0, height - 1.0, 1.0],
-                            [width - 1.0, height - 1.0, 1.0],
-                            [width - 1.0, 0.0, 1.0]], dtype=torch.float32,
-                           device=dev)
+    corners = _filled([[0.0, 0.0, 1.0], [0.0, height - 1.0, 1.0],
+                       [width - 1.0, height - 1.0, 1.0],
+                       [width - 1.0, 0.0, 1.0]], dev)
     rays = corners @ Kinv.T
     cam = se3.quat_rotate(q_rel[:, None], max_depth * rays) + t_rel[:, None]
     p = cam @ K.T  # (B, 4, 3)
@@ -140,8 +151,7 @@ def score_batch(width: int, height: int, K, Kinv, q_rel, t_rel,
     s_overlap = area / ((width - 1.0) * (height - 1.0))
 
     # Disparity of the test point at min vs infinite depth.
-    u = torch.tensor([width / 4.0, height / 4.0, 1.0], dtype=torch.float32,
-                     device=dev)
+    u = _filled([width / 4.0, height / 4.0, 1.0], dev)
     r = Kinv @ u
     p_inf = se3.quat_rotate(q_rel, r) @ K.T
     p_min = (se3.quat_rotate(q_rel, min_depth * r) + t_rel) @ K.T
@@ -166,13 +176,15 @@ def best_comparison_pose(width: int, height: int, K, Kinv, stack_q,
     (q_cmp, t_cmp, ok) as device tensors; ok is False when no candidate
     survives and the caller falls back to the previous frame. Ties go to
     the lowest slot, as jnp.argmax and torch.argmax both pick the first
-    maximum."""
-    q_ref = stack_q[ref_slot]
-    t_ref = stack_t[ref_slot]
+    maximum. ref_slot: a Python int, or a (1,) device index under a CUDA
+    graph; no value is read on the host."""
+    q_ref = row(stack_q, ref_slot)
+    t_ref = row(stack_t, ref_slot)
     q_rel, t_rel = se3.mul(se3.inverse((stack_q, stack_t)), (q_ref, t_ref))
     scores = score_batch(width, height, K, Kinv, q_rel, t_rel)
 
-    cand = stack_valid & (stack_fid != stack_fid[ref_slot]) & (stack_fid >= 0)
+    cand = stack_valid & (stack_fid != row(stack_fid, ref_slot)) \
+        & (stack_fid >= 0)
     # Recency rank by frame id: keep the max_pfs newest candidates (the
     # reference walks its id-ordered map backwards).
     newer = (stack_fid[None, :] > stack_fid[:, None]) & cand[None, :]
@@ -180,9 +192,9 @@ def best_comparison_pose(width: int, height: int, K, Kinv, stack_q,
     cand = cand & (recency_rank < max_pfs)
 
     masked = torch.where(cand, scores, torch.full_like(scores, SCORE_LOWEST))
-    best = torch.argmax(masked)
-    ok = cand.any() & (masked[best] > SCORE_LOWEST / 2)
-    return stack_q[best], stack_t[best], ok
+    best = torch.argmax(masked).reshape(1)
+    ok = cand.any() & (row(masked, best) > SCORE_LOWEST / 2)
+    return row(stack_q, best), row(stack_t, best), ok
 
 
 def score(width: int, height: int, K, Kinv, q_new_to_ref, t_new_to_ref,

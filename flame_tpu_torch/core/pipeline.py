@@ -11,13 +11,14 @@ feature dimension here.
 """
 
 import contextlib
+import dataclasses
 from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from flame_tpu_torch.core import detection, keyframe
+from flame_tpu_torch.core import detection, keyframe, step_graph
 from flame_tpu_torch.core import frame as frame_mod
 from flame_tpu_torch.core.frame import Frame, FrameStack
 from flame_tpu_torch.geometry import epipolar, se3
@@ -113,11 +114,40 @@ def _feature_geos(K, Kinv, stack: FrameStack, feats: FeatureState, q_new,
     return epipolar.load(K, Kinv, q_rel, t_rel)
 
 
+def _feature_tensors(feats: FeatureState) -> list:
+    return [getattr(feats, f.name) for f in dataclasses.fields(feats)]
+
+
 def track_project_sync(params: Params, K, Kinv, stack: FrameStack,
                        feats: FeatureState, fnew: Frame, curr_pf_slot: int):
     """Track -> measure -> fuse -> project -> graph-membership gate over
     all feature slots. Returns (feats', curr, member (N,) bool, stats
-    (N_STATS,) int32, obs)."""
+    (N_STATS,) int32, obs). On a CUDA device the step replays a CUDA
+    graph of _track_project_sync (core/step_graph.py); the returned
+    tensors are the caller's own."""
+    def eager():
+        return _track_project_sync(params, K, Kinv, stack, feats, fnew,
+                                   curr_pf_slot)
+
+    def body(ins, scalars):
+        f = Frame(frame_id=-1, q=ins[12], t=ins[13], img=None,
+                  img_pad=ins[9], gradx=ins[10], grady=ins[11])
+        return _track_project_sync(params, K, Kinv, stack,
+                                   FeatureState(*ins[:9]), f, scalars[0])
+    steps = step_graph.steps_for(stack)
+    if steps is None:
+        return eager()
+    return steps.run(
+        "track", body,
+        _feature_tensors(feats) + [fnew.img_pad, fnew.gradx, fnew.grady,
+                                   fnew.q, fnew.t],
+        (curr_pf_slot,), params, (K, Kinv, *_feature_tensors(stack)), eager)
+
+
+def _track_project_sync(params: Params, K, Kinv, stack: FrameStack,
+                        feats: FeatureState, fnew: Frame, curr_pf_slot):
+    """track_project_sync's body; curr_pf_slot: a Python int, or a (1,)
+    int64 device index under a graph."""
     H, W = fnew.gradx.shape
     pad = (fnew.img_pad.shape[0] - H) // 2
     fp = params.fparams
@@ -153,8 +183,8 @@ def track_project_sync(params: Params, K, Kinv, stack: FrameStack,
     bad_rescale = (rescale <= params.rescale_factor_min) | \
         (rescale >= params.rescale_factor_max)
 
-    q_pf = stack.q[curr_pf_slot]
-    t_pf = stack.t[curr_pf_slot]
+    q_pf = step_graph.row(stack.q, curr_pf_slot)
+    t_pf = step_graph.row(stack.t, curr_pf_slot)
     geo_n2pf = epipolar.load(K, Kinv, *se3.mul(se3.inverse((q_pf, t_pf)),
                                                (q_new, t_new)))
     geos_mv = epipolar.compose(geo_n2pf, geos)
@@ -274,7 +304,9 @@ def insert_detections(params: Params, feats: FeatureState,
                       seed_map: torch.Tensor, id_base: int) -> FeatureState:
     """Insert detection winners into free feature slots: the r-th winner
     takes the r-th free slot (reference flame.cc:737-757). New features
-    seed from seed_map (NaN -> idepth_init); winner r gets id id_base+r."""
+    seed from seed_map (NaN -> idepth_init); winner r gets id id_base+r.
+    pf_slot and id_base: Python ints, or (1,) device scalars under a
+    graph."""
     N = feats.valid.shape[0]
     C = det_out.shape[0]
     dev = det_out.device
@@ -304,9 +336,8 @@ def insert_detections(params: Params, feats: FeatureState,
     zc = torch.zeros(C, dtype=torch.int32, device=dev)
     return FeatureState(
         xy=scat(feats.xy, xy),
-        pf_slot=scat(feats.pf_slot, torch.full((C,), pf_slot,
-                                               dtype=torch.int64,
-                                               device=dev)),
+        pf_slot=scat(feats.pf_slot, step_graph.full(C, pf_slot,
+                                                    torch.int64, dev)),
         idepth_mu=scat(feats.idepth_mu, mu),
         idepth_var=scat(feats.idepth_var,
                         torch.full((C,), params.idepth_var_init,
@@ -324,11 +355,12 @@ def _detect(params: Params, K, Kinv, stack: FrameStack, pf_slot: int,
             cmp_q, cmp_t, curr_xy, curr_valid) -> torch.Tensor:
     H = stack.gradx.shape[1]
     row_offset = H // 3 if params.detection.do_letterbox else 0
-    geo = epipolar.load_relative(K, Kinv, (stack.q[pf_slot],
-                                           stack.t[pf_slot]),
+    row = step_graph.row
+    geo = epipolar.load_relative(K, Kinv, (row(stack.q, pf_slot),
+                                           row(stack.t, pf_slot)),
                                  (cmp_q, cmp_t))
     return detection.detect_packed(
-        geo, stack.gradx[pf_slot], stack.grady[pf_slot], curr_xy,
+        geo, row(stack.gradx, pf_slot), row(stack.grady, pf_slot), curr_xy,
         curr_valid, params.detection.min_grad_mag,
         params.detection.win_size, params.border, row_offset)
 
@@ -341,7 +373,35 @@ def _detect_and_insert(params: Params, K, Kinv, stack: FrameStack,
     epipolar direction comes from the best-scoring past poseframe
     (keyframe.best_comparison_pose, reference getPoseFrame
     flame.cc:775-820), else, or when no candidate survives, from the
-    previous frame. The choice stays on the device."""
+    previous frame. The choice stays on the device. On a CUDA device the
+    step replays a CUDA graph of _detect_and_insert_body, as
+    track_project_sync does."""
+    def eager():
+        return _detect_and_insert_body(params, K, Kinv, stack, curr_pf_slot,
+                                       feats3, curr.xy, curr.valid, prev_q,
+                                       prev_t, id_base, seed_map)
+
+    def body(ins, scalars):
+        return _detect_and_insert_body(
+            params, K, Kinv, stack, scalars[0], FeatureState(*ins[:9]),
+            ins[9], ins[10], ins[11], ins[12], scalars[1], ins[13])
+    steps = step_graph.steps_for(stack)
+    if steps is None:
+        return eager()
+    return steps.run(
+        "detect", body,
+        _feature_tensors(feats3) + [curr.xy, curr.valid, prev_q, prev_t,
+                                    seed_map],
+        (curr_pf_slot, id_base), params, (K, Kinv, *_feature_tensors(stack)),
+        eager)
+
+
+def _detect_and_insert_body(params: Params, K, Kinv, stack: FrameStack,
+                            curr_pf_slot, feats3: FeatureState, curr_xy,
+                            curr_valid, prev_q, prev_t, id_base,
+                            seed_map) -> FeatureState:
+    """_detect_and_insert's body; curr_pf_slot and id_base: Python ints,
+    or (1,) int64 device scalars under a graph."""
     cmp_q, cmp_t = prev_q, prev_t
     if params.photo_error_num_pfs > 0:
         H, W = stack.gradx.shape[1:]
@@ -351,7 +411,7 @@ def _detect_and_insert(params: Params, K, Kinv, stack: FrameStack,
         cmp_q = torch.where(cok, cq, prev_q)
         cmp_t = torch.where(cok, ct, prev_t)
     det_out = _detect(params, K, Kinv, stack, curr_pf_slot, cmp_q, cmp_t,
-                      curr.xy, curr.valid)
+                      curr_xy, curr_valid)
     return insert_detections(params, feats3, det_out, curr_pf_slot,
                              seed_map, id_base)
 

@@ -1,0 +1,214 @@
+"""The tracking step replayed from CUDA graphs.
+
+pipeline.track_project_sync launches about 1,800 small kernels a frame
+and poseframe detection (pipeline._detect_and_insert) about 730. Every
+shape is fixed by the capacities and neither reads a device value on
+the host, so on a CUDA device each is captured once as a CUDA graph and
+replayed on every later call: the host then copies the call's inputs
+into the graph's own buffers, fills its device scalars, replays and
+copies the outputs out, instead of dispatching each kernel from Python.
+A replay runs the captured kernels in their order, so its results are
+the eager body's bit for bit.
+
+A graph reads the frame stack, K and Kinv where they live (the stack is
+written in place; copying it would move every poseframe each frame).
+Steps holds the graphs of one stack, that is of one Flame, and is freed
+with it. A graph is keyed on what the code can observe: the Params
+object, the device, shapes and dtypes of the copied inputs, and the
+storage addresses (with shapes and dtypes) of the stack's tensors, K
+and Kinv; a call under another Params object or storage drops the
+stack's graphs of that kind and captures again, so no graph replays
+over freed storage.
+
+The capture step is a parameter: cuda_capture on the card;
+eager_capture runs the body on the graph's buffers without a graph, so
+that the CPU tests hold the plumbing (copies in, device scalars, owned
+outputs, keys, counters) to the eager call.
+"""
+
+import dataclasses
+import gc
+import weakref
+from typing import Callable, Dict, Optional
+
+import torch
+
+# StatsTracker counters per kind ("track", "detect"): graphs captured,
+# replays, and calls run eagerly on a CUDA device (inside another capture).
+COUNTERS = ("captures", "replays", "eager")
+
+
+def row(table: torch.Tensor, slot) -> torch.Tensor:
+    """table[slot] for a Python int, or for a (1,) integer device index
+    (a graph's device scalar) without reading it on the host."""
+    if isinstance(slot, torch.Tensor):
+        return table.index_select(0, slot)[0]
+    return table[slot]
+
+
+def full(n: int, value, dtype, device) -> torch.Tensor:
+    """torch.full((n,), value) for a Python int, or for a (1,) device
+    scalar."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype).expand(n)
+    return torch.full((n,), value, dtype=dtype, device=device)
+
+
+def cuda_capture(fn: Callable):
+    """fn() captured as one CUDA graph, as ba/window.py captures its
+    solve: a warm-up run on a side stream first, then the capture with
+    the garbage collector off (a collection inside it would run a dropped
+    Flame's CUDA destructors, which invalidate the capture). The Delaunay
+    worker thread makes no CUDA calls; thread_local leaves other threads'
+    calls unchecked all the same. Returns (outputs, replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
+    return out, graph.replay
+
+
+def eager_capture(fn: Callable):
+    """The capture step without a graph: fn() runs once for the outputs,
+    and each replay runs it again and writes its results over those
+    outputs, as a graph's replay overwrites its own."""
+    out = fn()
+    leaves = _leaves(out)
+
+    def replay():
+        for dst, src in zip(leaves, _leaves(fn())):
+            dst.copy_(src)
+    return out, replay
+
+
+def _leaves(x) -> list:
+    """The tensors of a nest of tuples, NamedTuples and dataclasses."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return []
+
+
+def _own(x, memo: dict):
+    """x with every tensor cloned once (a tensor that appears twice comes
+    back as one clone), so that a later replay leaves it unchanged."""
+    if isinstance(x, torch.Tensor):
+        c = memo.get(id(x))
+        if c is None:
+            c = memo[id(x)] = x.clone()
+        return c
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _own(getattr(x, f.name), memo)
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        items = [_own(v, memo) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+class _Graph:
+    """body(ins, scalars) captured over buffers of its own: ins, clones of
+    the first call's tensors, and scalars, (1,) int64 device tensors."""
+
+    def __init__(self, body: Callable, tensors, scalars, capture: Callable):
+        self.ins = [t.clone() for t in tensors]
+        dev = self.ins[0].device
+        self.scalars = [torch.full((1,), int(s), dtype=torch.int64,
+                                   device=dev) for s in scalars]
+        self.out, self._replay = capture(
+            lambda: body(self.ins, self.scalars))
+
+    def __call__(self, tensors, scalars):
+        for dst, src in zip(self.ins, tensors):
+            dst.copy_(src)
+        for dst, s in zip(self.scalars, scalars):
+            dst.fill_(int(s))
+        self._replay()
+        return _own(self.out, {})
+
+
+class Steps:
+    """The graphs of one frame stack, per kind, and their counters."""
+
+    def __init__(self, capture: Callable):
+        self.capture = capture
+        # kind -> (Params, resident key, {shape key: _Graph})
+        self._graphs: Dict[str, tuple] = {}
+        self.counts: Dict[str, int] = {}
+
+    def _count(self, kind: str, what: str) -> None:
+        key = f"{kind}_graph_{what}"
+        self.counts[key] = self.counts.get(key, 0) + 1
+
+    def run(self, kind: str, body: Callable, tensors, scalars, params,
+            resident, eager: Callable):
+        """body(ins, scalars) replayed from the graph of this key, which
+        is captured first if there is none. tensors: copied into the
+        graph's buffers; scalars: Python ints filled into its device
+        scalars; params and the resident tensors (read in place) key the
+        graph by identity, and by address, shape and dtype. eager(): the
+        call itself, run while the current stream is already capturing
+        (a graph cannot be captured inside another capture)."""
+        dev = tensors[0].device
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            self._count(kind, "eager")
+            return eager()
+        res_key = (dev, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                              for t in resident))
+        shape_key = tuple((tuple(t.shape), t.dtype) for t in tensors)
+        held = self._graphs.get(kind)
+        if held is None or held[0] is not params or held[1] != res_key:
+            # Another Params object or storage: the old graphs hold other
+            # constants or read freed memory, and go. The Params object is
+            # held, so that no other one takes its place at its address.
+            held = self._graphs[kind] = (params, res_key, {})
+        g = held[2].get(shape_key)
+        if g is None:
+            g = held[2][shape_key] = _Graph(body, tensors, scalars,
+                                            self.capture)
+            self._count(kind, "captures")
+        self._count(kind, "replays")
+        return g(tensors, scalars)
+
+
+# id(stack) -> Steps; an entry goes when its stack is collected.
+_STEPS: Dict[int, Steps] = {}
+
+
+def attach(stack, capture: Callable = cuda_capture) -> Steps:
+    """The Steps of this frame stack, made with `capture` if it has none
+    (on a CPU stack only this call gives it one)."""
+    key = id(stack)
+    s = _STEPS.get(key)
+    if s is None:
+        s = _STEPS[key] = Steps(capture)
+        weakref.finalize(stack, _STEPS.pop, key, None)
+    return s
+
+
+def steps_for(stack) -> Optional[Steps]:
+    """The stack's Steps: a CUDA stack gets one at its first call; None
+    for a stack elsewhere that attach() was not given (the eager path)."""
+    s = _STEPS.get(id(stack))
+    if s is None and stack.q.device.type == "cuda":
+        s = attach(stack)
+    return s
+
+
+def counts(stack) -> Dict[str, int]:
+    """The stack's counters (empty while it has no Steps)."""
+    s = _STEPS.get(id(stack))
+    return dict(s.counts) if s is not None else {}

@@ -7,8 +7,9 @@ thread's innermost open span and carries frame ids and a poseframe flag,
 given or inherited from that parent. Finished spans go into a
 fixed-capacity ring per tracker (SPAN_CAPACITY, oldest dropped first);
 latest() returns the ring of the newest tracker in the process, which
-outlives the tracker's owner. While a torch profiler records, each span
-also enters record_function("flame." + key), so that the profiler's
+outlives the tracker's owner (latest_tracker(): the tracker itself).
+While a torch profiler records, each span also enters
+record_function("flame." + key), so that the profiler's
 trace holds it on the clock of the device's kernels and copies; with no
 profiler recording, record_function is never entered.
 
@@ -39,12 +40,19 @@ SPAN_CAPACITY = 1 << 18
 EVENT_CAPACITY = 1 << 16
 
 _latest = None
+_latest_tracker = None
 
 
 def latest() -> Optional["SpanRing"]:
     """The span ring of the newest StatsTracker in the process (None
     before the first)."""
     return _latest
+
+
+def latest_tracker() -> Optional["StatsTracker"]:
+    """The newest StatsTracker in the process, kept after its owner has
+    gone (None before the first)."""
+    return _latest_tracker
 
 
 def _profiling() -> bool:
@@ -176,7 +184,7 @@ class StatsTracker:
     events."""
 
     def __init__(self, prefix: str = "", device=None):
-        global _latest
+        global _latest, _latest_tracker
         self._prefix = prefix
         self._lock = threading.Lock()
         self._tick_times: Dict[str, float] = {}
@@ -190,6 +198,7 @@ class StatsTracker:
         self._seq = itertools.count()
         self._local = threading.local()
         _latest = self._ring
+        _latest_tracker = self
 
     def _key(self, name: str) -> str:
         return self._prefix + name

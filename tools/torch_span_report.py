@@ -23,6 +23,10 @@ and in the traced slice
                    split into snapshot_wait, delaunay, topo_upload and
                    the rest, ms a frame
   slice_ms_per_frame  the traced slice's wall ms a frame
+  graphs           the tracker's CUDA-graph counters
+                   (track_graph_{captures,replays,eager}, detect_graph_*;
+                   core/step_graph.py) and the update() calls of the
+                   run: warm-up, window and slice
 """
 
 import argparse
@@ -82,6 +86,7 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
         if p not in sys.path:
             sys.path.insert(0, p)
     from harness import cell, spans
+    from flame_tpu_torch.core import step_graph
     from flame_tpu_torch.utils import stats
     t_start = time.perf_counter()
     r = cell.run(cell_name, seed, seconds, True, t_start, device="cuda")
@@ -116,6 +121,12 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
         slice_ms_per_frame=x["traced"]["ms_per_frame"],
         idle_share=x["traced"]["idle_share"],
         idle_gaps=r["breakdown"]["idle_gaps"],
+        graphs=dict(
+            {f"{k}_graph_{c}": int(stats.latest_tracker().stats(
+                f"{k}_graph_{c}")) for k in ("track", "detect")
+             for c in step_graph.COUNTERS},
+            updates=sum(1 for s in stats.latest().spans()
+                        if s.name == "update")),
         spans_in_ring=len(stats.latest()))
 
 
