@@ -66,7 +66,8 @@ class Feed:
     def send(self, fl, k: int) -> bool:
         if k >= len(self.poses):
             raise RuntimeError(f"frame {k} past the {len(self.poses)} "
-                               f"poses drawn at set-up")
+                               f"poses drawn at set-up (the traffic's "
+                               f"loop.max_fps caps the window's frames)")
         return fl.update(k / self.hz, k, self.poses[k], self.image(k),
                          k % self.pf_every == 0)
 
@@ -96,6 +97,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
     wl = registry.workload(workload, bench_dir)
     cfg = registry.config(entry["config"], bench_dir)
     tr = registry.traffic(entry["traffic"], bench_dir)
+    # The compared-number plug-ins whose numbers the cell's limits name.
+    plugins = {name: mod for name, mod in registry.compare_plugins(
+        bench_dir, checks.NUMBERS).items()
+        if set(mod.NUMBERS) & set(wl["limits"])}
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     torch.manual_seed(seed % (2 ** 63))
@@ -130,11 +135,15 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
     if traced:
         for point in recorders:
             hk.listen(point, calllog)
+    listeners = {name: mod.Listener() for name, mod in plugins.items()}
+    for name, mod in plugins.items():
+        for point in mod.HOOKS:
+            hk.listen(point, listeners[name])
     hk.install()
     try:
         out = _drive(fl, feed, group, n_warm, n_trace, seconds, seed,
-                     int(loop["samples"]), sampler, calllog, t_start, cuda,
-                     log)
+                     int(loop["samples"]), sampler, calllog, listeners,
+                     t_start, cuda, log)
     finally:
         hk.uninstall()
 
@@ -154,6 +163,15 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
     samples = out.pop("samples")
     out["n_samples"] = len(samples)
     values = checks.numbers(samples, dev, cfg, feed.image, control=control)
+    captures = out.pop("plugin_captures")
+    for name, mod in plugins.items():
+        got = mod.numbers(captures[name], dev, cfg, feed.image,
+                          control=control)
+        stray = {n.removesuffix(".control") for n in got} - set(mod.NUMBERS)
+        if stray:
+            raise ValueError(f"compare/{name}.py gave numbers outside its "
+                             f"NUMBERS: {sorted(stray)}")
+        values.update(got)
     out["reference_s"] = time.perf_counter() - t_ref
     correct, rows = checks.decide(values, wl["limits"])
     out["values"] = values
@@ -201,8 +219,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
 
 
 def _drive(fl, feed, group, n_warm, n_trace, seconds, seed, n_samples,
-           sampler, calllog, t_start, cuda, log):
-    """Warm-up, window (and traced slice); returns the run's readings."""
+           sampler, calllog, listeners, t_start, cuda, log):
+    """Warm-up, window (and traced slice); returns the run's readings.
+    The plug-ins' listeners are armed at the sampled reads and hand over
+    what they kept once, after the window's drain."""
     def sync():
         if cuda:
             torch.cuda.synchronize()
@@ -244,6 +264,8 @@ def _drive(fl, feed, group, n_warm, n_trace, seconds, seed, n_samples,
         armed = reads in chosen
         if armed:
             sampler.arm()
+            for ls in listeners.values():
+                ls.arm()
         oks, stamps, m, t_ret = step(k)
         lat.extend(t_ret - s for s in stamps)
         failed += sum(not o for o in oks)
@@ -256,6 +278,7 @@ def _drive(fl, feed, group, n_warm, n_trace, seconds, seed, n_samples,
     sync()
     fl.get_inverse_depth_map()
     t_end = time.perf_counter()
+    plugin_captures = {name: ls.take() for name, ls in listeners.items()}
     frames = k - k_first
     ev = _stage_events(fl, cuda)
     stages = {k_: v[ev0.get(k_, 0):] for k_, v in ev.items()}
@@ -266,6 +289,7 @@ def _drive(fl, feed, group, n_warm, n_trace, seconds, seed, n_samples,
              "setup_s": setup_s},
         attempted=frames, failed=failed, frames=frames, reads=reads,
         window_s=t_end - t0, samples=samples,
+        plugin_captures=plugin_captures,
         latency_ms_p50=float(np.percentile(1e3 * np.asarray(lat), 50)),
         stages=stages)
     log(f"window: {frames} frames in {t_end - t0:.3f} s, {reads} reads, "
@@ -297,9 +321,10 @@ def _drive(fl, feed, group, n_warm, n_trace, seconds, seed, n_samples,
 
 
 class Context:
-    """What a per-layer metric's reader sees: the window's frames, reads
-    and stage times (CUDA-event milliseconds, StatsTracker's), the traced
-    slice's reduction and each kernel's roofline reading."""
+    """What a per-layer metric's reader sees: the window's frames, reads,
+    end-to-end readings (e2e) and stage times (CUDA-event milliseconds,
+    StatsTracker's), the traced slice's reduction and each kernel's
+    roofline reading."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -327,5 +352,5 @@ def _context(out, stages, roofs, calllog):
         ks = [d for kname, ds in tr["kernels"].items() if mod.KERNEL in kname
               for d in ds]
         roof[name] = _roofline(mod, calllog.calls.get(name), ks)
-    return Context(frames=out["frames"], reads=out["reads"], stages=stages,
-                   trace=tr, rooflines=roof)
+    return Context(frames=out["frames"], reads=out["reads"], e2e=out["e2e"],
+                   stages=stages, trace=tr, rooflines=roof)

@@ -55,6 +55,9 @@ from reference import nltgv2 as ref_nltgv2
 from reference import raster as ref_raster
 from reference.tracking import step as ref_track
 
+# The names numbers() gives; a plug-in (compare/) may not take them.
+NUMBERS = ("track_gap", "track_miss", "k1_gap", "map_gap", "map_miss",
+           "views_gap", "views_miss", "tri_gap", "sync_gap", "sync_miss")
 MAX_PER_TILE = 160  # the raster contract's candidates per tile, one view
 MAX_PER_TILE_BATCH = 192  # and for B views over their union boxes
 

@@ -19,6 +19,14 @@ device; the listeners decide what is kept:
     made it, is kept for every sample.
   * CallLog (traced slice only): references to the inputs and outputs,
     for the roofline files' byte and operation counts after the slice.
+  * A compared-number plug-in's Listener (compare/<name>.py), installed
+    only in a cell whose limits name one of its numbers, on the points
+    its HOOKS list.
+
+A point is (module, attribute). The attribute may be dotted,
+"BundleAdjuster._apply": the wrapper then replaces the method on its
+class, is called with the instance first among its args, and uninstall
+puts back the very object the class held.
 """
 
 import importlib
@@ -48,9 +56,11 @@ class Hooks:
 
     def install(self) -> None:
         for point, listeners in self._listeners.items():
-            mod = importlib.import_module(point[0])
-            orig = getattr(mod, point[1])
-            self._orig[point] = (mod, orig)
+            owner, attr = _owner(point)
+            orig = getattr(owner, attr)
+            # What the owner itself held: None for a method its class
+            # inherits, which uninstall deletes again.
+            self._orig[point] = (owner, attr, vars(owner).get(attr))
 
             def wrapper(*args, _orig=orig, _ls=listeners, _pt=point,
                         **kwargs):
@@ -59,12 +69,25 @@ class Hooks:
                 for ls, tok in zip(_ls, tokens):
                     ls.after(_pt, tok, out)
                 return out
-            setattr(mod, point[1], wrapper)
+            setattr(owner, attr, wrapper)
 
     def uninstall(self) -> None:
-        for point, (mod, orig) in self._orig.items():
-            setattr(mod, point[1], orig)
+        for owner, attr, held in self._orig.values():
+            if held is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, held)
         self._orig.clear()
+
+
+def _owner(point):
+    """The module, or the class a dotted attribute names in it, that
+    holds the point's attribute, and the attribute's own name."""
+    owner = importlib.import_module(point[0])
+    *path, attr = point[1].split(".")
+    for name in path:
+        owner = getattr(owner, name)
+    return owner, attr
 
 
 def _graph_copy(g) -> dict:

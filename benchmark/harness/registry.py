@@ -7,9 +7,14 @@
   workloads/<cell>.json      a cell: the limits of its compared numbers
   metrics/<metric>.py        a per-layer metric's reader: read(ctx)
   roofline/<kernel>.py       a kernel's bytes and operations per call
+  compare/<name>.py          compared numbers of a cell's own: NUMBERS,
+                             HOOKS (points, a method as "Class.method"),
+                             Listener and numbers(); installed where a
+                             cell's limits name one of its NUMBERS
 
-A new cell, configuration, metric or kernel is a new file here and an
-entry in BENCHMARK.json; nothing else is edited.
+A new cell, configuration, metric, kernel or compared number is a new
+file here and an entry in BENCHMARK.json or a workload's limits;
+nothing else is edited.
 """
 
 import glob
@@ -70,6 +75,27 @@ def rooflines(bench_dir: str = BENCH_DIR) -> dict:
     return {os.path.basename(p)[:-3]: load_module(p) for p in sorted(
         glob.glob(os.path.join(bench_dir, "roofline", "*.py")))
         if not os.path.basename(p).startswith("_")}
+
+
+def compare_plugins(bench_dir: str = BENCH_DIR, reserved=()) -> dict:
+    """Every compared-number plug-in file, by file name. A name in a
+    plug-in's NUMBERS that is reserved (the built-in checks') or that
+    another plug-in gives, or that ends in ".control", raises."""
+    plugins, owner = {}, dict.fromkeys(reserved, "the built-in checks")
+    for p in sorted(glob.glob(os.path.join(bench_dir, "compare", "*.py"))):
+        name = os.path.basename(p)[:-3]
+        if name.startswith("_"):
+            continue
+        mod = load_module(p)
+        for n in mod.NUMBERS:
+            taken = owner.get(n) or (n.endswith(".control")
+                                     and "the control readings")
+            if taken:
+                raise ValueError(f"compare/{name}.py: number {n!r} is "
+                                 f"taken by {taken}")
+            owner[n] = f"compare/{name}.py"
+        plugins[name] = mod
+    return plugins
 
 
 def cell_metrics(sp: dict, cell: str, kind: str) -> list:

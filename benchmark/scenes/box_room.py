@@ -102,11 +102,17 @@ def noisy_poses(cfg: dict, n: int, sigma_t: float, sigma_deg: float,
     """Input poses of frames start..start+n-1: the true pose with i.i.d.
     noise per frame, sigma_t metres on each axis of t and a rotation of
     sigma_deg * N(0, 1) about a uniformly random axis (io/synthetic.py's
-    model), drawn from seed."""
+    model), drawn from seed. The true poses repeat with the period's P
+    frames, so each is computed once and indexed mod P."""
     rng = np.random.default_rng([seed, 1])
+    P = period_frames(cfg)
+    period = {}
     out = []
     for i in range(start, start + n):
-        q, t = true_pose(cfg, i)
+        j = i % P
+        if j not in period:
+            period[j] = true_pose(cfg, j)
+        q, t = period[j]
         if sigma_t or sigma_deg:
             t = t + rng.normal(0.0, sigma_t, 3)
             ang = math.radians(sigma_deg) * rng.normal()

@@ -31,4 +31,5 @@ def test_cell_runs_on_the_card(card, cell):
     assert line["correct"], line["checks"]
     assert list(line)[-1] == "checks"
     assert line["device"]["platform"] == "gpu"
-    assert set(line["metrics"]) == {"fps", "map_latency_ms_p95", "setup_s"}
+    assert set(line["metrics"]) == {m["name"] for m in registry.cell_metrics(
+        registry.spec(), cell, "end_to_end")}

@@ -65,6 +65,31 @@ def test_metric_reader_found(metric):
     assert callable(registry.metric_reader(metric["name"]).read)
 
 
+def test_every_cell_reports_its_map_latency():
+    """A cell that does not report map_latency_ms_p95 end to end reports
+    it per layer, as loop.map_latency_ms_p95, beside fps."""
+    for w in SPEC["workloads"]:
+        e2e = [m["name"] for m in registry.cell_metrics(SPEC, w["name"],
+                                                        "end_to_end")]
+        layer = [m["name"] for m in registry.cell_metrics(SPEC, w["name"],
+                                                          "per_layer")]
+        assert "setup_s" in e2e and "fps" in e2e
+        assert ("map_latency_ms_p95" in e2e) != (
+            "loop.map_latency_ms_p95" in layer)
+
+
+def test_loop_latency_reader_reads_the_window():
+    """The reader gives the window's map latency p95 from the Context the
+    traced run builds, and None from one without end-to-end readings."""
+    from harness import cell
+    out = dict(frames=16, reads=2, trace=dict(kernels={}),
+               e2e=dict(fps=140.0, map_latency_ms_p95=66.5, setup_s=12.0))
+    ctx = cell._context(out, {}, {}, None)
+    reader = registry.metric_reader("loop.map_latency_ms_p95")
+    assert reader.read(ctx) == 66.5
+    assert reader.read(cell.Context(frames=16, reads=2)) is None
+
+
 @pytest.mark.parametrize("name", sorted(registry.rooflines()))
 def test_roofline_found(name):
     mod = registry.rooflines()[name]
