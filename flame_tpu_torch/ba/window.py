@@ -17,6 +17,12 @@ scatter, and one idepth scatter guarded by identity (the slot must still
 hold the same feat_id mod 2^24 and the same anchor poseframe slot),
 which makes the lag safe against slot recycling and re-anchoring.
 
+In Flame.stats a staged solve is the host span "ba_stage" (the window's
+build, the pack, the upload and the solve's launch), which holds the
+timed block "ba_solve" (the graph's replay, or the eager solve off the
+card: its CUDA events give the solve's device time); an apply is the
+host span "ba_apply"; COUNTERS are counted beside them.
+
 Under a mesh (ShardedFlame) every solve is decoded, re-matched and
 weighted the same way, solved with the observation-sharded assembly
 (parallel/distributed_ba.py) and applied at once, as in the JAX package
@@ -36,6 +42,12 @@ from flame_tpu_torch.core import pipeline, step_graph
 from flame_tpu_torch.parallel import sharding
 from flame_tpu_torch.params import BAParams
 from flame_tpu_torch.utils import evaluation
+
+# The counters BA keeps in Flame.stats, which Flame.failure_stats() lists
+# when do_ba is on.
+COUNTERS = ("ba_single_solves", "ba_sharded_solves", "ba_graph_captures",
+            "ba_solves_applied", "ba_solves_rejected", "ba_writeback_skips",
+            "ba_obs_dropped_pfs")
 
 
 def split_packed(params, arr: np.ndarray):
@@ -497,113 +509,130 @@ class BundleAdjuster:
         window_ids = [f for f in window_ids if f in snap_slot_by_id]
         if len(window_ids) < need:
             return
-        pose_by_id = {f: (s["stack_q"][snap_slot_by_id[f]],
-                          s["stack_t"][snap_slot_by_id[f]])
-                      for f in window_ids}
-        lm_map = self._snapshot_landmarks(fl._feat_valid_np)
-        built = self.store.build_window(
-            window_ids, pose_by_id, {k: v[1] for k, v in lm_map.items()},
-            max_landmarks=p.max_landmarks, max_obs=p.max_obs,
-            prior_by_id=self._input_pose_by_id)
-        if built is None:
-            return
-        # The cadence is charged only for a solve that stages.
-        self._snap_dirty = False
-        self._new_pf_count = 0
-        problem, order, keys, n_obs = built
-        # Landmark -> current slot and anchor slot, checked again on the
-        # device at apply time.
-        slot_w = np.array([fl._pf_slot_by_id[f] for f in order], np.int32)
-        P, L, M = len(order), p.max_landmarks, p.max_obs
-        meta = dict(order=order, P=P, L=L, n_obs=n_obs,
-                    lm_slots=np.array([lm_map[k][0] for k in keys], np.int32),
-                    lm_ids=np.array([k[0] for k in keys], np.int32),
-                    lm_anchor_slots=np.array([lm_map[k][2] for k in keys],
-                                             np.int32),
-                    # Staged poses, for the write-back gate at apply time.
-                    q_in=np.array(problem.q, np.float32),
-                    t_in=np.array(problem.t, np.float32))
-        buf = torch.as_tensor(_pack_problem(problem, slot_w), device=fl.device)
-        img_pad = fl._stack.img_pad
-        if self.mesh is not None:
-            # Under a mesh every solve is observation-sharded, counted, and
-            # applied synchronously, as in the JAX package.
-            from flame_tpu_torch.parallel import distributed_ba
-            fl.stats.add("ba_sharded_solves", 1)
-            prob, slots = _decode_packed(buf, P, L, M)
-            prob, sqrtW = _rematch_and_weigh(p, self.K, self.Kinv, prob,
-                                             slots, img_pad, fl.params.pad)
-            res = distributed_ba.solve_window_sharded(
-                p, self.K, self.Kinv, prob, self.mesh, n_fixed=n_fixed,
-                sqrtW=sqrtW)
-            self._apply(fl, _flat_result(*res).cpu().numpy(), meta)
-            return
-        fl.stats.add("ba_single_solves", 1)
+        # ba_stage: the window's build, the pack, the upload and the
+        # solve's launch, which holds the timed block ba_solve.
+        with fl.stats.span("ba_stage"):
+            pose_by_id = {f: (s["stack_q"][snap_slot_by_id[f]],
+                              s["stack_t"][snap_slot_by_id[f]])
+                          for f in window_ids}
+            lm_map = self._snapshot_landmarks(fl._feat_valid_np)
+            built = self.store.build_window(
+                window_ids, pose_by_id,
+                {k: v[1] for k, v in lm_map.items()},
+                max_landmarks=p.max_landmarks, max_obs=p.max_obs,
+                prior_by_id=self._input_pose_by_id)
+            if built is None:
+                return
+            # The cadence is charged only for a solve that stages.
+            self._snap_dirty = False
+            self._new_pf_count = 0
+            problem, order, keys, n_obs = built
+            # Landmark -> current slot and anchor slot, checked again on
+            # the device at apply time.
+            slot_w = np.array([fl._pf_slot_by_id[f] for f in order],
+                              np.int32)
+            P, L, M = len(order), p.max_landmarks, p.max_obs
+            meta = dict(order=order, P=P, L=L, n_obs=n_obs,
+                        lm_slots=np.array([lm_map[k][0] for k in keys],
+                                          np.int32),
+                        lm_ids=np.array([k[0] for k in keys], np.int32),
+                        lm_anchor_slots=np.array([lm_map[k][2] for k in keys],
+                                                 np.int32),
+                        # Staged poses, for the write-back gate at apply
+                        # time.
+                        q_in=np.array(problem.q, np.float32),
+                        t_in=np.array(problem.t, np.float32))
+            buf = torch.as_tensor(_pack_problem(problem, slot_w),
+                                  device=fl.device)
+            img_pad = fl._stack.img_pad
+            if self.mesh is not None:
+                # Under a mesh every solve is observation-sharded and
+                # counted.
+                from flame_tpu_torch.parallel import distributed_ba
+                fl.stats.add("ba_sharded_solves", 1)
+                with fl.stats.timed("ba_solve"):
+                    prob, slots = _decode_packed(buf, P, L, M)
+                    prob, sqrtW = _rematch_and_weigh(
+                        p, self.K, self.Kinv, prob, slots, img_pad,
+                        fl.params.pad)
+                    res = _flat_result(*distributed_ba.solve_window_sharded(
+                        p, self.K, self.Kinv, prob, self.mesh,
+                        n_fixed=n_fixed, sqrtW=sqrtW))
+            else:
+                fl.stats.add("ba_single_solves", 1)
 
-        def solve(b):
-            return _solve_packed(p, self.K, self.Kinv, b, img_pad,
-                                 fl.params.pad, n_fixed, P, L, M)
-        if buf.is_cuda:
-            if P not in self._graphs:
-                self._graphs[P] = _GraphedSolve(solve, buf)
-            res = self._graphs[P](buf)
+                def solve(b):
+                    return _solve_packed(p, self.K, self.Kinv, b, img_pad,
+                                         fl.params.pad, n_fixed, P, L, M)
+                if buf.is_cuda and P not in self._graphs:
+                    fl.stats.add("ba_graph_captures", 1)
+                    self._graphs[P] = _GraphedSolve(solve, buf)
+                with fl.stats.timed("ba_solve"):
+                    res = self._graphs[P](buf) if buf.is_cuda else solve(buf)
+        if self.mesh is not None:
+            # Under a mesh every solve is applied at once, as in the JAX
+            # package.
+            self._apply(fl, res.cpu().numpy(), meta)
         else:
-            res = solve(buf)
-        self._inflight = (_AsyncFetch(res), meta)
+            self._inflight = (_AsyncFetch(res), meta)
 
     def _apply(self, fl, flat: np.ndarray, meta: dict) -> None:
         """Acceptance-check a finished solve and write the poses and the
-        refined idepths back (no blocking reads)."""
-        p = self.params
-        P, L = meta["P"], meta["L"]
-        q = flat[: 4 * P].reshape(P, 4)
-        t = flat[4 * P: 7 * P].reshape(P, 3)
-        lm = flat[7 * P: 7 * P + L]
-        cost = float(flat[7 * P + L])
-        self.last_cost = cost
-        mean_cost = cost / max(meta["n_obs"], 1)
-        self.last_accepted = bool(np.isfinite(mean_cost)
-                                  and mean_cost < p.max_mean_cost)
-        if not self.last_accepted:
-            return
-        fl.stats.add("ba_solves_applied", 1)
-
-        # Poses of the frames still resident (a prune or an eviction
-        # between stage and apply drops a row).
-        rows = [(fl._pf_slot_by_id[f], i) for i, f in enumerate(meta["order"])
-                if f in fl._pf_slot_by_id]
-        if rows:
-            sel = np.array([i for _, i in rows])
-            frame_mod.set_poses(fl._stack, [s for s, _ in rows],
-                                torch.as_tensor(q[sel], device=fl.device),
-                                torch.as_tensor(t[sel], device=fl.device))
-
-        # Write-back gate: when the solve barely moved the window poses,
-        # the refined idepths are re-triangulations of converged filter
-        # depths from noisier re-matches; skip them (counted). A zero
-        # threshold disables its axis only.
-        if p.writeback_min_dt > 0 or p.writeback_min_drot > 0:
-            pe = evaluation.pose_errors(q, t, meta["q_in"], meta["t_in"])
-            t_small = (p.writeback_min_dt <= 0
-                       or pe["t_max"] < p.writeback_min_dt)
-            r_small = (p.writeback_min_drot <= 0
-                       or np.radians(pe["r_max_deg"]) < p.writeback_min_drot)
-            if t_small and r_small:
-                fl.stats.add("ba_writeback_skips", 1)
+        refined idepths back (no blocking reads), in the span ba_apply."""
+        with fl.stats.span("ba_apply"):
+            p = self.params
+            P, L = meta["P"], meta["L"]
+            q = flat[: 4 * P].reshape(P, 4)
+            t = flat[4 * P: 7 * P].reshape(P, 3)
+            lm = flat[7 * P: 7 * P + L]
+            cost = float(flat[7 * P + L])
+            self.last_cost = cost
+            mean_cost = cost / max(meta["n_obs"], 1)
+            self.last_accepted = bool(np.isfinite(mean_cost)
+                                      and mean_cost < p.max_mean_cost)
+            if not self.last_accepted:
+                fl.stats.add("ba_solves_rejected", 1)
                 return
+            fl.stats.add("ba_solves_applied", 1)
 
-        # Refined idepths: one (L, 4) upload and a guarded scatter; rows
-        # past the window's landmarks have slot -1 (inert).
-        trip = np.full((L, 4), -1, np.int32)
-        Lk = meta["lm_slots"].shape[0]
-        trip[:Lk, 0] = meta["lm_slots"]
-        trip[:Lk, 1] = meta["lm_ids"]
-        trip[:Lk, 2] = meta["lm_anchor_slots"]
-        trip[:, 3] = lm.astype(np.float32).view(np.int32)
-        first = 0
-        if sharding.grouped(self.mesh):
-            first = sharding.block_slice(fl.params.feature_capacity,
-                                         self.mesh).start
-        fl._feats = _apply_idepths(fl._feats,
-                                   torch.as_tensor(trip, device=fl.device),
-                                   first)
+            # Poses of the frames still resident (a prune or an eviction
+            # between stage and apply drops a row).
+            rows = [(fl._pf_slot_by_id[f], i)
+                    for i, f in enumerate(meta["order"])
+                    if f in fl._pf_slot_by_id]
+            if rows:
+                sel = np.array([i for _, i in rows])
+                frame_mod.set_poses(fl._stack, [s for s, _ in rows],
+                                    torch.as_tensor(q[sel], device=fl.device),
+                                    torch.as_tensor(t[sel], device=fl.device))
+
+            # Write-back gate: when the solve barely moved the window poses,
+            # the refined idepths are re-triangulations of converged filter
+            # depths from noisier re-matches; skip them (counted). A zero
+            # threshold disables its axis only.
+            if p.writeback_min_dt > 0 or p.writeback_min_drot > 0:
+                pe = evaluation.pose_errors(q, t, meta["q_in"], meta["t_in"])
+                t_small = (p.writeback_min_dt <= 0
+                           or pe["t_max"] < p.writeback_min_dt)
+                r_small = (p.writeback_min_drot <= 0
+                           or np.radians(pe["r_max_deg"])
+                           < p.writeback_min_drot)
+                if t_small and r_small:
+                    fl.stats.add("ba_writeback_skips", 1)
+                    return
+
+            # Refined idepths: one (L, 4) upload and a guarded scatter; rows
+            # past the window's landmarks have slot -1 (inert).
+            trip = np.full((L, 4), -1, np.int32)
+            Lk = meta["lm_slots"].shape[0]
+            trip[:Lk, 0] = meta["lm_slots"]
+            trip[:Lk, 1] = meta["lm_ids"]
+            trip[:Lk, 2] = meta["lm_anchor_slots"]
+            trip[:, 3] = lm.astype(np.float32).view(np.int32)
+            first = 0
+            if sharding.grouped(self.mesh):
+                first = sharding.block_slice(fl.params.feature_capacity,
+                                             self.mesh).start
+            fl._feats = _apply_idepths(fl._feats,
+                                       torch.as_tensor(trip, device=fl.device),
+                                       first)

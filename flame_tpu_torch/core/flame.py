@@ -60,7 +60,8 @@ stages run as spans inside it ("upload", "frame_creation",
 "update_idepths", "triangulate" with "snapshot_wait" and "delaunay",
 "topo_upload", "sync_graph" with "smoother" and "raster"; on the batched
 path "batch_step", carrying the batch's frame ids, with "raster_batch";
-"snapshot_wait" for the async join; "ba"). A buffered frame that a later
+"snapshot_wait" for the async join; "ba" with "ba_stage", which holds
+the solve's "ba_solve", and "ba_apply"). A buffered frame that a later
 call runs (the next update() once batching disengages, or a map read)
 has its own "update" span inside that call's span. The worker thread's
 "delaunay" span carries the snapshot's frame ids and a link to the span
@@ -1262,6 +1263,9 @@ class Flame:
                 "members_deduped")},
             "raster_max_union_candidates": max(
                 (int(c) for c in self._raster_union), default=0),
+            # With do_ba, BA's counters (ba/window.py).
+            **({k: int(self.stats.stats(k)) for k in ba_window.COUNTERS}
+               if self._ba is not None else {}),
         }
 
     # ------------------------------------------------------------------

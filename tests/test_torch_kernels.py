@@ -250,16 +250,16 @@ def test_halo_kernel_rejects_what_the_card_cannot_hold(cuda):
                             (zi, zi) + (zs,) * 9)
 
 
-def _check_raster(pos, tris, vals, valid, max_per_tile):
+def _check_raster(pos, tris, vals, valid, max_per_tile, h=H, w=W):
     """K2 through rasterize_with_count against the plain rasterizer: one
     launch, equal NaN masks, values to 1e-5, equal largest count."""
-    cand = rasterize.tile_candidates(pos, tris, vals, valid, H, W,
+    cand = rasterize.tile_candidates(pos, tris, vals, valid, h, w,
                                      max_per_tile=max_per_tile)
     before = _kernels.LAUNCHES["raster_mesh"]
     out_k, count = raster_kernel.rasterize_with_count(
-        pos, tris, vals, valid, H, W, max_per_tile=max_per_tile)
+        pos, tris, vals, valid, h, w, max_per_tile=max_per_tile)
     assert _kernels.LAUNCHES["raster_mesh"] == before + 1
-    out_p = rasterize.finish(rasterize.eval_tiles(cand.cdata), H, W)
+    out_p = rasterize.finish(rasterize.eval_tiles(cand.cdata), h, w)
     assert torch.equal(torch.isnan(out_k), torch.isnan(out_p))
     m = ~torch.isnan(out_k)
     torch.testing.assert_close(out_k[m], out_p[m], rtol=0, atol=1e-5)
@@ -301,17 +301,17 @@ def _views(pos, B):
         [3.0 * b, -2.0 * b], device=pos.device) for b in range(B)])
 
 
-def _check_raster_batch(verts, tris, vals, valid, max_per_tile):
+def _check_raster_batch(verts, tris, vals, valid, max_per_tile, h=H, w=W):
     """K2b through rasterize_batch_with_count against the plain union
     binning + eval_tiles_batch: one launch, equal NaN masks, values to
     1e-5, equal largest union count."""
-    cand = rasterize.tile_candidates_batch(verts, tris, vals, valid, H, W,
+    cand = rasterize.tile_candidates_batch(verts, tris, vals, valid, h, w,
                                            max_per_tile=max_per_tile)
     before = _kernels.LAUNCHES["raster_mesh_batch"]
     out_k, count = raster_kernel.rasterize_batch_with_count(
-        verts, tris, vals, valid, H, W, max_per_tile=max_per_tile)
+        verts, tris, vals, valid, h, w, max_per_tile=max_per_tile)
     assert _kernels.LAUNCHES["raster_mesh_batch"] == before + 1
-    out_p = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata), H, W)
+    out_p = rasterize.finish(rasterize.eval_tiles_batch(cand.cdata), h, w)
     assert torch.equal(torch.isnan(out_k), torch.isnan(out_p))
     m = ~torch.isnan(out_k)
     torch.testing.assert_close(out_k[m], out_p[m], rtol=0, atol=1e-5)
@@ -353,6 +353,39 @@ def test_raster_batch_kernel_overflow_keeps_the_plain_candidates(cuda):
     valid = torch.rand(B, tris.shape[0], device=cuda) > 0.02
     _, count = _check_raster_batch(_views(pos, B), tris, vals, valid, 192)
     assert count > 192
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_raster_kernels_at_752_columns(cuda, seed):
+    """K2 and K2b at 752x480 (a MAV camera): the sixth column of tiles is
+    112 of its 128 columns wide. Half the mesh's points lie in the last
+    192 columns, so its triangles cross that tile's left edge and reach
+    the image's right edge; B=8 views shift and scale the mesh past it.
+    Equal NaN masks, values to 1e-5 and equal largest counts against the
+    plain rasterizer, and the masks of the brute force."""
+    Hm, Wm = 480, 752
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform([2, 2], [Wm - 2, Hm - 2], (900, 2)),
+                          rng.uniform([560, 2], [Wm - 0.5, Hm - 2],
+                                      (900, 2))])
+    tri = delaunay.triangulate(pts.astype(np.float32))
+    pos = torch.as_tensor(pts, dtype=torch.float32, device=cuda)
+    tris = torch.as_tensor(tri.triangles.astype(np.int64), device=cuda)
+    vals = torch.rand(pts.shape[0], device=cuda) + 0.5
+    valid = torch.rand(tris.shape[0], device=cuda) > 0.02
+    out_k, _ = _check_raster(pos, tris, vals, valid, 256, Hm, Wm)
+    ref = rasterize.rasterize_bruteforce(pos, tris, vals, valid, Hm, Wm)
+    assert torch.equal(torch.isnan(ref), torch.isnan(out_k))
+    assert not bool(torch.isnan(out_k[:, 640:]).all())
+    B = 8
+    verts = _views(pos, B)
+    bvals = torch.rand(B, pts.shape[0], device=cuda) + 0.5
+    bvalid = torch.rand(B, tris.shape[0], device=cuda) > 0.02
+    out_b, _ = _check_raster_batch(verts, tris, bvals, bvalid, 512, Hm, Wm)
+    for b in range(B):
+        ref = rasterize.rasterize_bruteforce(verts[b], tris, bvals[b],
+                                             bvalid[b], Hm, Wm)
+        assert torch.equal(torch.isnan(ref), torch.isnan(out_b[b]))
 
 
 def test_cuda_tensors_never_take_the_plain_path(graph, monkeypatch):

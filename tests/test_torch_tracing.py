@@ -18,8 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import flame_tpu_torch  # noqa: E402
-from flame_tpu_torch.params import (DetectionParams, Params,  # noqa: E402
-                                    SolverParams)
+from flame_tpu_torch.params import (BAParams, DetectionParams,  # noqa: E402
+                                    Params, SolverParams)
 from flame_tpu_torch.utils import stats  # noqa: E402
 
 FX = 100.0
@@ -44,8 +44,8 @@ def render(cam_x):
     return np.clip(t, 0, 255).astype(np.uint8)
 
 
-def make_flame(async_topology=False, frame_batch=1):
-    params = Params(
+def make_flame(async_topology=False, frame_batch=1, ba=None):
+    params = Params(do_ba=ba is not None, ba=ba or BAParams(),
         feature_capacity=512, edge_capacity=2048, triangle_capacity=1024,
         poseframe_capacity=8, min_height=-100.0, max_height=100.0,
         idepth_init=0.05, idepth_var_init=0.25,
@@ -96,6 +96,16 @@ def batch_run():
     return fl
 
 
+@pytest.fixture(scope="module")
+def ba_run():
+    """The synchronous path with windowed BA; every solve fails the cost
+    gate (max_mean_cost 0), so each apply is a rejection."""
+    fl = make_flame(ba=BAParams(max_landmarks=256, max_obs=1024,
+                                max_mean_cost=0.0))
+    drive(fl, 12)
+    return fl
+
+
 def _by_seq(spans):
     return {s.seq: s for s in spans}
 
@@ -125,7 +135,8 @@ def test_one_update_root_span_per_call(sync_run):
     assert not {"upload", "snapshot_wait", "map_read"} & set(t)
 
 
-@pytest.mark.parametrize("run", ["sync_run", "async_run", "batch_run"])
+@pytest.mark.parametrize("run", ["sync_run", "async_run", "batch_run",
+                                 "ba_run"])
 def test_children_nest_inside_parents(run, request):
     fl = request.getfixturevalue(run)
     spans = fl.stats.spans.spans()
@@ -404,3 +415,34 @@ def test_fps_max_times_the_frame_not_the_flushed_ones(monkeypatch):
     assert all(ms < 3000.0 for ms in at_done)
     assert fl.stats.timings("update") < 3000.0
     assert all(v > 1000.0 / 3000.0 for v in samples)
+
+
+def test_ba_spans_carry_their_update(ba_run):
+    """ba_stage holds ba_solve; ba_stage and ba_apply run in the "ba"
+    block of an update() and carry its frame id; the new counters count
+    the graph captures (one per window size, on the card alone) and the
+    rejections (one per apply), and failure_stats() lists BA's
+    counters."""
+    spans = ba_run.stats.spans.spans()
+    seq = _by_seq(spans)
+    named = {k: [s for s in spans if s.name == k]
+             for k in ("ba_stage", "ba_solve", "ba_apply")}
+    assert all(named.values()), {k: len(v) for k, v in named.items()}
+    for s in named["ba_solve"]:
+        assert seq[s.parent].name == "ba_stage"
+        assert s.frames == seq[s.parent].frames
+    for s in named["ba_stage"] + named["ba_apply"]:
+        ba = seq[s.parent]
+        assert ba.name == "ba"
+        upd = seq[ba.parent]
+        assert upd.name == "update" and upd.parent < 0
+        assert s.frames == upd.frames and len(s.frames) == 1
+    st = ba_run.stats
+    assert st.stats("ba_graph_captures") == len(ba_run._ba._graphs)
+    assert bool(ba_run._ba._graphs) == (ba_run.device.type == "cuda")
+    assert st.stats("ba_single_solves") == len(named["ba_solve"])
+    assert st.stats("ba_solves_rejected") == len(named["ba_apply"])
+    assert st.stats("ba_solves_applied") == 0
+    fs = ba_run.failure_stats()
+    assert fs["ba_solves_rejected"] == len(named["ba_apply"])
+    assert fs["ba_graph_captures"] == len(ba_run._ba._graphs)

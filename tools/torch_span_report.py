@@ -27,6 +27,14 @@ and in the traced slice
                    (track_graph_{captures,replays,eager}, detect_graph_*;
                    core/step_graph.py) and the update() calls of the
                    run: warm-up, window and slice
+  ba               with do_ba (ba/window.py): the window's ba_stage,
+                   ba_solve (host) and ba_apply spans in ms a frame, the
+                   solves staged in the window, the run's counters
+                   (solves staged, applied, rejected, graph captures),
+                   the graph captures made inside the window, and the
+                   ATE (m, no alignment) of the live poseframes' poses at
+                   the run's end against the scene's true poses, beside
+                   that of the same frames' input poses
 """
 
 import argparse
@@ -80,16 +88,74 @@ def _closure(w, wall_s):
                for s in w.roots(name) if s.thread in main) / (1e3 * wall_s)
 
 
+def _ba(w, captures_ns, fl, cell_name, seed) -> dict:
+    """BA's split of the window, its counters, and the live poseframes'
+    ATE against the true and the input poses (see the module)."""
+    from harness import registry
+    from scenes import box_room
+    from flame_tpu_torch.ba import window
+    from flame_tpu_torch.utils import stats
+    n = len(w.ids)
+    ms = {k: sum(s.ms for s in w.named(k)) / n
+          for k in ("ba_stage", "ba_solve", "ba_apply")}
+    solved = {s.parent for s in w.named("ba_solve")}
+    first = min(s.start_ns for s in w.named("update"))
+    last = max(s.end_ns for s in w.named("update"))
+    tracker = stats.latest_tracker()
+    out = dict(ms_per_frame=ms, staged_in_window=sum(
+        s.seq in solved for s in w.named("ba_stage")),
+        counters={k: int(tracker.stats(k)) for k in window.COUNTERS},
+        graph_captures_in_window=sum(first <= t <= last
+                                     for t in captures_ns))
+    sp = registry.spec()
+    entry = registry.cell(sp, cell_name)
+    cfg = registry.config(entry["config"])
+    noise = registry.traffic(entry["traffic"]).get("pose_noise", {})
+    start = box_room.start_frame(cfg, seed)
+    fids = sorted(fl._pf_slot_by_id)
+    slots = [fl._pf_slot_by_id[f] for f in fids]
+    est = fl._stack.t[slots].double().cpu().numpy()
+    true = np.array([box_room.true_pose(cfg, start + f)[1] for f in fids])
+    given = box_room.noisy_poses(cfg, fids[-1] + 1, float(noise.get(
+        "t_m", 0.0)), float(noise.get("deg", 0.0)), seed, start)
+    inp = np.array([given[f][1] for f in fids])
+
+    def ate(t):
+        return float(np.sqrt(np.mean(np.sum((t - true) ** 2, axis=1))))
+    out["ate_m"] = dict(ba=ate(est), input=ate(inp), poseframes=len(fids))
+    return out
+
+
 def report(cell_name: str, seed: int, seconds: float) -> dict:
     bench = os.path.join(REPO, "benchmark")
     for p in (REPO, bench):
         if p not in sys.path:
             sys.path.insert(0, p)
     from harness import cell, spans
-    from flame_tpu_torch.core import step_graph
+    from flame_tpu_torch.ba import window
+    from flame_tpu_torch.core import flame, step_graph
     from flame_tpu_torch.utils import stats
-    t_start = time.perf_counter()
-    r = cell.run(cell_name, seed, seconds, True, t_start, device="cuda")
+    # The run's last Flame, kept past the harness's del for the ATE, and
+    # the host clock of each BA graph capture.
+    held, captures_ns = {}, []
+    read, graphed = flame.Flame.get_inverse_depth_map, window._GraphedSolve
+
+    def read_and_keep(self, *a, **k):
+        held["fl"] = self
+        return read(self, *a, **k)
+
+    class Counted(graphed):
+        def __init__(self, *a, **k):
+            captures_ns.append(time.perf_counter_ns())
+            super().__init__(*a, **k)
+    flame.Flame.get_inverse_depth_map = read_and_keep
+    window._GraphedSolve = Counted
+    try:
+        t_start = time.perf_counter()
+        r = cell.run(cell_name, seed, seconds, True, t_start, device="cuda")
+    finally:
+        flame.Flame.get_inverse_depth_map = read
+        window._GraphedSolve = graphed
     x = r["_extra"]
     n = x["frames"]
     ctx = cell.Context(frames=n, reads=x["reads"], stages={}, trace=None,
@@ -127,6 +193,8 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
              for c in step_graph.COUNTERS},
             updates=sum(1 for s in stats.latest().spans()
                         if s.name == "update")),
+        ba=(_ba(w, captures_ns, held["fl"], cell_name, seed)
+            if held["fl"]._ba is not None else None),
         spans_in_ring=len(stats.latest()))
 
 
