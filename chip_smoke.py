@@ -188,19 +188,23 @@ Phases (any failure raises and the script exits non-zero):
      solve as a CUDA graph against its eager run (phase 5c's check, rtol
      1e-4); and the share of float32 roots torch.sqrt rounds otherwise
      than numpy on the card.
- 16. the tracking step from CUDA graphs (core/step_graph.py): 40 frames
-     of the synchronous posture (bench_params() with
-     photo_error_num_pfs=30) and of the batched one (throughput_params()
-     with deterministic=True; frame_batch 8), poseframes every 2nd frame,
-     each run twice on phase 6's scene: replaying the graphs, and with
-     step_graph.steps_for patched to None (the eager path). The feature
-     state, the current features, the stats and every map read after a
-     frame or a batch must be bit-equal between the two; the graphed run
-     must count one capture per graph, a replay for every call of
-     pipeline.track_project_sync and _detect_and_insert (wrapped by
-     name, as the benchmark wraps tracking) and no eager call. Prints
-     update_idepths' host ms per frame (its spans, the first 4 calls
-     left out), eager against graphed, and its CUDA-event ms.
+ 16. the tracking step and the post-Delaunay section from CUDA graphs
+     (core/step_graph.py): 40 frames of the synchronous posture
+     (bench_params() with photo_error_num_pfs=30) and of the batched one
+     (throughput_params() with deterministic=True; frame_batch 8),
+     poseframes every 2nd frame, each run twice on phase 6's scene:
+     replaying the graphs, and with step_graph.steps_for patched to None
+     (the eager path). The feature state, the current features, the
+     stats, the graph state, normals, triangle validity and every map
+     read after a frame or a batch must be bit-equal between the two;
+     the graphed run must count one capture per graph, a replay for
+     every call of pipeline.track_project_sync, _detect_and_insert and
+     _post_delaunay_inner (wrapped by name, as the benchmark wraps them;
+     the post-Delaunay section's four graphs each replay once a call),
+     no eager call, and one K1 and one K2 launch per post-Delaunay call.
+     Prints update_idepths' host ms per frame and sync_graph's host ms
+     per call (their spans, the first 4 calls left out), eager against
+     graphed, and update_idepths' CUDA-event ms.
 Each path runs with the launch counts set to 0 just before it and read
 just after (in the bench's process for phase 13). The last lines are
 the kernels' JSON summary (with each kernel's bound: the larger of its
@@ -2916,15 +2920,18 @@ def branch_phase(smi, ba_cells):
 
 
 def graph_run(smi, label, params, frames, K, Kinv, graphed):
-    """One phase-16 run: the state after every map read, update_idepths'
-    host ms per frame and CUDA-event ms, the graph counters and the
-    number of tracking and detection calls."""
+    """One phase-16 run: the state after every map read, the host ms of
+    update_idepths per frame and of sync_graph per call, the graph
+    counters and the number of tracking, detection and post-Delaunay
+    calls."""
     import contextlib
     from unittest import mock
+    from flame_tpu_torch import _kernels
     from flame_tpu_torch.core import pipeline, step_graph
     fl = make_flame(K, Kinv, params, False)
     B = int(params.solver.frame_batch)
-    calls = {"track_project_sync": 0, "_detect_and_insert": 0}
+    calls = {"track_project_sync": 0, "_detect_and_insert": 0,
+             "_post_delaunay_inner": 0}
 
     def counted(name):
         orig = getattr(pipeline, name)
@@ -2934,6 +2941,7 @@ def graph_run(smi, label, params, frames, K, Kinv, graphed):
             return orig(*a, **kw)
         return mock.patch.object(pipeline, name, wrapper)
     reads = []
+    _kernels.reset_launches()
     with contextlib.ExitStack() as ctx:
         for name in calls:
             ctx.enter_context(counted(name))
@@ -2950,25 +2958,38 @@ def graph_run(smi, label, params, frames, K, Kinv, graphed):
                         "num_updates", "num_dropouts", "search_status",
                         "feat_id")]
                     + [fl._curr.xy, fl._curr.idepth, fl._curr.var,
-                       fl._curr.valid, fl._last_stats_dev])]
+                       fl._curr.valid, fl._last_stats_dev]
+                    + [getattr(fl._graph, f) for f in (
+                        "pos", "x", "w1", "w2", "q1", "q2", "q3",
+                        "edge_mask")] + [fl._tri_validity])]
                 reads.append(state)
     torch.cuda.synchronize()
-    host = [s.ms / B for s in fl.stats.spans.spans()
-            if s.name == "update_idepths"][4:]
+    n_post = calls["_post_delaunay_inner"]
+    if (_kernels.LAUNCHES["nltgv2_smoother"] != n_post
+            or _kernels.LAUNCHES["raster_mesh"] != n_post):
+        raise AssertionError(f"16 {label}: launches {_kernels.LAUNCHES} "
+                             f"for {n_post} post-Delaunay calls")
+    spans = fl.stats.spans.spans()
+    host = [s.ms / B for s in spans if s.name == "update_idepths"][4:]
+    sync = [s.ms for s in spans if s.name == "sync_graph"][4:]
     dev = fl.stats.device_times_ms().get("update_idepths", [])[4:]
     counts = {f"{k}_graph_{c}": int(fl.stats.stats(f"{k}_graph_{c}"))
-              for k in ("track", "detect") for c in step_graph.COUNTERS}
+              for k in step_graph.KINDS for c in step_graph.COUNTERS}
     print(f"16 {label} {'graphed' if graphed else 'eager'}: update_idepths "
           f"host {np.median(host):.3f} ms a frame (median of {len(host)} "
-          f"calls), CUDA events {np.median(dev) / B:.3f} ms a frame; calls "
-          f"{calls}; counters {counts}; {fl._n_valid} features live, "
-          f"coverage {float(np.mean(~np.isnan(reads[-1][0]))):.4f} on {smi}")
-    return reads, calls, counts, float(np.median(host))
+          f"calls), CUDA events {np.median(dev) / B:.3f} ms a frame; "
+          f"sync_graph host {np.median(sync):.3f} ms a call (median of "
+          f"{len(sync)}); calls {calls}; counters {counts}; "
+          f"{fl._n_valid} features live, coverage "
+          f"{float(np.mean(~np.isnan(reads[-1][0]))):.4f} on {smi}")
+    return (reads, calls, counts, float(np.median(host)),
+            float(np.median(sync)))
 
 
 def graph_phase(smi, n_frames=40):
     """Phase 16: each posture eager and replayed from CUDA graphs."""
     import dataclasses
+    from flame_tpu_torch.core import step_graph
     K, Kinv, frames = scene(n_frames)
     postures = (
         ("synchronous", bench_params().replace(photo_error_num_pfs=30)),
@@ -2976,30 +2997,36 @@ def graph_phase(smi, n_frames=40):
             throughput_params().solver, deterministic=True))))
     out = {}
     for label, params in postures:
-        eager, _, _, ms_e = graph_run(smi, label, params, frames, K, Kinv,
-                                      False)
-        graphed, calls, counts, ms_g = graph_run(smi, label, params, frames,
-                                                 K, Kinv, True)
+        eager, _, _, ms_e, sync_e = graph_run(smi, label, params, frames, K,
+                                              Kinv, False)
+        graphed, calls, counts, ms_g, sync_g = graph_run(
+            smi, label, params, frames, K, Kinv, True)
         if len(eager) != len(graphed) or not eager:
             raise AssertionError(f"16 {label}: {len(eager)} eager reads, "
                                  f"{len(graphed)} graphed")
         for k, (a, b) in enumerate(zip(eager, graphed)):
-            for x, y in zip(a, b):
+            for i, (x, y) in enumerate(zip(a, b)):
                 if not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
                     raise AssertionError(f"16 {label}: read {k} differs "
-                                         f"between eager and graphed")
+                                         f"between eager and graphed in "
+                                         f"array {i}")
         want = dict(track_graph_captures=1,
                     track_graph_replays=calls["track_project_sync"],
                     track_graph_eager=0, detect_graph_captures=1,
                     detect_graph_replays=calls["_detect_and_insert"],
                     detect_graph_eager=0)
+        want.update({f"{k}_graph_{c}": n for k in step_graph.KINDS[2:]
+                     for c, n in (("captures", 1), ("eager", 0), (
+                         "replays", calls["_post_delaunay_inner"]))})
         if counts != want or calls["_detect_and_insert"] < 1:
             raise AssertionError(f"16 {label}: counters {counts}, want "
                                  f"{want}")
         print(f"16 {label}: {len(graphed)} reads bit-equal, eager against "
               f"graphed; update_idepths host ms a frame {ms_e:.3f} eager, "
-              f"{ms_g:.3f} graphed ({ms_e / ms_g:.1f}x)")
-        out[label] = (ms_e, ms_g)
+              f"{ms_g:.3f} graphed ({ms_e / ms_g:.1f}x); sync_graph host "
+              f"ms a call {sync_e:.3f} eager, {sync_g:.3f} graphed "
+              f"({sync_e / sync_g:.1f}x)")
+        out[label] = (ms_e, ms_g, sync_e, sync_g)
     return out
 
 

@@ -1040,14 +1040,16 @@ class Flame:
         prev = self._fprev if self._fprev is not None else self._fnew
         sync_pose = (self._last_sync_pose if self._last_sync_pose is not None
                      else (prev.q, prev.t))
-        (graph, vtx_idepths, vtx_normals,
-         self._tri_validity, self._idepthmap, self._graph_scale,
-         self._coverage) = pipeline._post_delaunay_inner(
-            p, self.K, self.Kinv, sharding.gather_rows(mesh, self._graph),
-            member, curr, sync_pose,
-            (self._fnew.q, self._fnew.t), self._graph_scale, self.width,
-            self.height, self._idepthmap if p.init_with_prediction else None,
-            mesh=mesh, timed=self.stats.timed, **topo.dev)
+        with step_graph.active(step_graph.steps_for(self._stack)):
+            (graph, vtx_idepths, vtx_normals,
+             self._tri_validity, self._idepthmap, self._graph_scale,
+             self._coverage) = pipeline._post_delaunay_inner(
+                p, self.K, self.Kinv,
+                sharding.gather_rows(mesh, self._graph), member, curr,
+                sync_pose, (self._fnew.q, self._fnew.t), self._graph_scale,
+                self.width, self.height,
+                self._idepthmap if p.init_with_prediction else None,
+                mesh=mesh, timed=self.stats.timed, **topo.dev)
         self._graph, self._vtx_idepths, self._vtx_normals = (
             sharding.shard_rows(a, mesh)
             for a in (graph, vtx_idepths, vtx_normals))

@@ -1,14 +1,27 @@
-"""The tracking step replayed from CUDA graphs.
+"""The tracking step and the post-Delaunay section replayed from CUDA
+graphs.
 
-pipeline.track_project_sync launches about 1,800 small kernels a frame
-and poseframe detection (pipeline._detect_and_insert) about 730. Every
-shape is fixed by the capacities and neither reads a device value on
-the host, so on a CUDA device each is captured once as a CUDA graph and
-replayed on every later call: the host then copies the call's inputs
-into the graph's own buffers, fills its device scalars, replays and
+pipeline.track_project_sync launches about 1,800 small kernels a frame,
+poseframe detection (pipeline._detect_and_insert) about 730 and the
+post-Delaunay section (pipeline._post_delaunay_inner) about 690 around
+its two hand-written kernels. Every shape is fixed by the capacities and
+none reads a device value on the host, so on a CUDA device each is
+captured once as a CUDA graph and replayed on every later call: the
+host then copies the call's inputs into the graph's own buffers (one
+multi-tensor copy per dtype), fills its device scalars, replays and
 copies the outputs out, instead of dispatching each kernel from Python.
 A replay runs the captured kernels in their order, so its results are
 the eager body's bit for bit.
+
+The post-Delaunay section is cut into graphs at the calls made by name
+(smoother_kernel.smooth, raster_kernel.rasterize), which stay calls
+with their real inputs and outputs: kind "post" (topology, graph sync,
+the triangle mask), "smooth" (inside smooth: the slot prologue, K1, the
+write-back), "mesh" (vertex idepths, normals, filters) and "raster"
+(inside rasterize: the triangle rows, K2, the crop). The section's
+caller makes the stack's Steps current (active()); smooth and rasterize
+replay only while a Steps is current, so every other call of theirs
+runs eagerly.
 
 A graph reads the frame stack, K and Kinv where they live (the stack is
 written in place; copying it would move every poseframe each frame).
@@ -24,18 +37,33 @@ The capture step is a parameter: cuda_capture on the card;
 eager_capture runs the body on the graph's buffers without a graph, so
 that the CPU tests hold the plumbing (copies in, device scalars, owned
 outputs, keys, counters) to the eager call.
+
+A graph's outputs are cloned for the caller, so that a later replay
+leaves them unchanged; an output that is one of the call's inputs comes
+back as the caller's own tensor, as the eager body returns it (no body
+writes an input in place). The hand-written kernels count their
+launches (_kernels.LAUNCHES) once per call: the capture's own runs
+leave the counts as they were, and each replay adds the launches its
+graph holds.
 """
 
+import contextlib
 import dataclasses
 import gc
+import threading
 import weakref
 from typing import Callable, Dict, Optional
 
 import torch
 
-# StatsTracker counters per kind ("track", "detect"): graphs captured,
-# replays, and calls run eagerly on a CUDA device (inside another capture).
+from flame_tpu_torch import _kernels
+
+# StatsTracker counters per kind: graphs captured, replays, and calls run
+# eagerly on a CUDA device (inside another capture).
 COUNTERS = ("captures", "replays", "eager")
+# The kinds: tracking, poseframe detection, and the post-Delaunay
+# section's four graphs.
+KINDS = ("track", "detect", "post", "smooth", "mesh", "raster")
 
 
 def row(table: torch.Tensor, slot) -> torch.Tensor:
@@ -102,21 +130,42 @@ def _leaves(x) -> list:
     return []
 
 
-def _own(x, memo: dict):
-    """x with every tensor cloned once (a tensor that appears twice comes
-    back as one clone), so that a later replay leaves it unchanged."""
+def copy_all(dsts, srcs) -> None:
+    """dst.copy_(src) for each pair, as one multi-tensor copy per dtype
+    and device (a launch each, where a copy_ apiece costs the host a
+    dispatch per tensor)."""
+    groups: Dict[tuple, tuple] = {}
+    for d, s in zip(dsts, srcs):
+        g = groups.setdefault((d.dtype, d.device, s.device), ([], []))
+        g[0].append(d)
+        g[1].append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def _rebuild(x, memo: dict):
+    """x with every tensor replaced by memo[id(tensor)]."""
     if isinstance(x, torch.Tensor):
-        c = memo.get(id(x))
-        if c is None:
-            c = memo[id(x)] = x.clone()
-        return c
+        return memo[id(x)]
     if dataclasses.is_dataclass(x):
-        return type(x)(**{f.name: _own(getattr(x, f.name), memo)
+        return type(x)(**{f.name: _rebuild(getattr(x, f.name), memo)
                           for f in dataclasses.fields(x)})
     if isinstance(x, tuple):
-        items = [_own(v, memo) for v in x]
+        items = [_rebuild(v, memo) for v in x]
         return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
     return x
+
+
+def _own(x, memo: dict):
+    """x with every tensor not in memo (id -> the tensor to return)
+    cloned once (a tensor that appears twice comes back as one clone),
+    so that a later replay leaves it unchanged."""
+    srcs = [t for t in _leaves(x) if id(t) not in memo]
+    srcs = list({id(t): t for t in srcs}.values())
+    dsts = [torch.empty_like(t) for t in srcs]
+    copy_all(dsts, srcs)
+    memo.update((id(s), d) for s, d in zip(srcs, dsts))
+    return _rebuild(x, memo)
 
 
 class _Graph:
@@ -128,16 +177,26 @@ class _Graph:
         dev = self.ins[0].device
         self.scalars = [torch.full((1,), int(s), dtype=torch.int64,
                                    device=dev) for s in scalars]
-        self.out, self._replay = capture(
-            lambda: body(self.ins, self.scalars))
+        self.launches: Dict[str, int] = {}
+
+        def counted():
+            before = dict(_kernels.LAUNCHES)
+            out = body(self.ins, self.scalars)
+            self.launches = {k: n - before.get(k, 0)
+                             for k, n in _kernels.LAUNCHES.items()
+                             if n != before.get(k, 0)}
+            _kernels.LAUNCHES.update(before)
+            return out
+        self.out, self._replay = capture(counted)
 
     def __call__(self, tensors, scalars):
-        for dst, src in zip(self.ins, tensors):
-            dst.copy_(src)
+        copy_all(self.ins, tensors)
         for dst, s in zip(self.scalars, scalars):
             dst.fill_(int(s))
         self._replay()
-        return _own(self.out, {})
+        for k, n in self.launches.items():
+            _kernels.LAUNCHES[k] += n
+        return _own(self.out, {id(b): t for b, t in zip(self.ins, tensors)})
 
 
 class Steps:
@@ -154,21 +213,24 @@ class Steps:
         self.counts[key] = self.counts.get(key, 0) + 1
 
     def run(self, kind: str, body: Callable, tensors, scalars, params,
-            resident, eager: Callable):
+            resident, eager: Optional[Callable] = None, static=()):
         """body(ins, scalars) replayed from the graph of this key, which
         is captured first if there is none. tensors: copied into the
         graph's buffers; scalars: Python ints filled into its device
         scalars; params and the resident tensors (read in place) key the
-        graph by identity, and by address, shape and dtype. eager(): the
-        call itself, run while the current stream is already capturing
-        (a graph cannot be captured inside another capture)."""
+        graph by identity, and by address, shape and dtype; static: the
+        other host values the body reads (hashable), part of the key.
+        eager(): the call itself (default: body on the call's own
+        tensors and scalars), run while the current stream is already
+        capturing (a graph cannot be captured inside another capture)."""
         dev = tensors[0].device
         if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
             self._count(kind, "eager")
-            return eager()
+            return eager() if eager is not None else body(tensors, scalars)
         res_key = (dev, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
                               for t in resident))
-        shape_key = tuple((tuple(t.shape), t.dtype) for t in tensors)
+        shape_key = (tuple((tuple(t.shape), t.dtype) for t in tensors),
+                     static)
         held = self._graphs.get(kind)
         if held is None or held[0] is not params or held[1] != res_key:
             # Another Params object or storage: the old graphs hold other
@@ -186,6 +248,24 @@ class Steps:
 
 # id(stack) -> Steps; an entry goes when its stack is collected.
 _STEPS: Dict[int, Steps] = {}
+# The Steps the running post-Delaunay section replays from, per thread.
+_ACTIVE = threading.local()
+
+
+@contextlib.contextmanager
+def active(steps: Optional[Steps]):
+    """Make `steps` current (None: the eager path) inside the block."""
+    prev = getattr(_ACTIVE, "steps", None)
+    _ACTIVE.steps = steps
+    try:
+        yield steps
+    finally:
+        _ACTIVE.steps = prev
+
+
+def current() -> Optional[Steps]:
+    """The Steps made current by active(), or None."""
+    return getattr(_ACTIVE, "steps", None)
 
 
 def attach(stack, capture: Callable = cuda_capture) -> Steps:

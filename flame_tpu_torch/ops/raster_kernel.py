@@ -18,6 +18,7 @@ kernel runs or the call raises; there is no fallback.
 import torch
 
 from flame_tpu_torch import _kernels
+from flame_tpu_torch.core import step_graph
 from flame_tpu_torch.ops import rasterize as plain
 
 KERNEL = "raster_mesh"
@@ -109,9 +110,18 @@ def rasterize_with_count(verts, tris, vals, tri_valid, height: int,
 def rasterize(verts, tris, vals, tri_valid, height: int, width: int,
               truncate: bool = True, tile_h: int = 32,
               max_per_tile: int = MAX_PER_TILE) -> torch.Tensor:
-    """(H, W) float32 map, NaN where uncovered."""
-    return rasterize_with_count(verts, tris, vals, tri_valid, height, width,
-                                truncate, tile_h, max_per_tile)[0]
+    """(H, W) float32 map, NaN where uncovered. While a step_graph.Steps
+    is current (the post-Delaunay section on a CUDA device) the call
+    replays one CUDA graph: the triangle rows, K2's launch, the crop."""
+    shape = (height, width, truncate, tile_h, max_per_tile)
+
+    def body(ins, scalars):
+        return rasterize_with_count(*ins, *shape)[0]
+    ins = [verts, tris, vals, tri_valid]
+    steps = step_graph.current()
+    if steps is None:
+        return body(ins, ())
+    return steps.run("raster", body, ins, (), None, (), static=shape)
 
 
 def raster_mesh_batch(packed: torch.Tensor, bbox: torch.Tensor, height: int,

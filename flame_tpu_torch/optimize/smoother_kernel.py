@@ -23,6 +23,7 @@ Counterpart of flame_tpu/optimize/pallas_smoother.py, in two halves:
 """
 
 import ctypes
+import dataclasses
 import functools
 from typing import Callable, NamedTuple
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from flame_tpu_torch import _kernels
+from flame_tpu_torch.core import step_graph
 from flame_tpu_torch.optimize import nltgv2, topology
 from flame_tpu_torch.params import RegularizerParams
 
@@ -143,14 +145,32 @@ def iterate(p: RegularizerParams, tables: nltgv2.SlotTables,
     return out
 
 
-def smooth(p: RegularizerParams, g: nltgv2.GraphState,
-           n_iters: int) -> nltgv2.GraphState:
-    """Prologue, n_iters iterations (kernel on CUDA), write-back."""
+def _smooth(p: RegularizerParams, g: nltgv2.GraphState,
+            n_iters: int) -> nltgv2.GraphState:
     tables, state = nltgv2.slot_prologue(g)
     state = iterate(p, tables, g.data_term.contiguous(),
                     (p.data_factor * g.data_weight).contiguous(),
                     g.vtx_mask, state, n_iters)
     return nltgv2.unslot(g, state)
+
+
+def smooth(p: RegularizerParams, g: nltgv2.GraphState,
+           n_iters: int) -> nltgv2.GraphState:
+    """Prologue, n_iters iterations (kernel on CUDA), write-back. While a
+    step_graph.Steps is current (the post-Delaunay section on a CUDA
+    device) the three replay one CUDA graph, K1's launch in it; the
+    fields the write-back leaves are g's own."""
+    steps = step_graph.current()
+    if steps is None:
+        return _smooth(p, g, n_iters)
+    names = tuple(f.name for f in dataclasses.fields(g)
+                  if getattr(g, f.name) is not None)
+
+    def body(ins, scalars):
+        return _smooth(p, nltgv2.GraphState(**dict(zip(names, ins))),
+                       n_iters)
+    return steps.run("smooth", body, [getattr(g, k) for k in names], (), p,
+                     (), static=(names, n_iters))
 
 
 # ---------------------------------------------------------------------------

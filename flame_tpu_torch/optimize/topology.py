@@ -173,8 +173,10 @@ def from_edges(edges_in: torch.Tensor, n_edges: int, pos: torch.Tensor,
                prev_q1: torch.Tensor, prev_q2: torch.Tensor,
                prev_q3: torch.Tensor, e_cap: int, v_cap: int, degree: int,
                ranks: Optional[torch.Tensor]) -> Topology:
-    """Topology from the host edge list (padded to e_cap). Duals carry
-    over by binary search of the new codes in the previous sorted codes.
+    """Topology from the host edge list (padded to e_cap); n_edges a
+    Python int, or a (1,) device scalar (a CUDA graph's), kept as given.
+    Duals carry over by binary search of the new codes in the previous
+    sorted codes.
     ranks None skips the incidence tables (zero tables, every src_slot
     V * D): the banded smoothers build their own layout from RCM ranks,
     which are not incidence ranks."""
@@ -195,7 +197,9 @@ def from_edges(edges_in: torch.Tensor, n_edges: int, pos: torch.Tensor,
     return Topology(edges=torch.stack([lo_e, hi_e], dim=1),
                     alpha=_alpha(pos, lo_e, hi_e, edge_mask),
                     edge_mask=edge_mask, q1=q1, q2=q2, q3=q3,
-                    inc_edge=inc[0], inc_sign=inc[1], n_edges=int(n_edges),
+                    inc_edge=inc[0], inc_sign=inc[1],
+                    n_edges=(n_edges if isinstance(n_edges, torch.Tensor)
+                             else int(n_edges)),
                     src_slot=inc[2])
 
 

@@ -455,3 +455,87 @@ def test_graphed_ba_solve_matches_eager(cuda):
         torch.testing.assert_close(got[:-1], want[:-1], rtol=1e-4,
                                    atol=1e-5)
         torch.testing.assert_close(got[-1], want[-1], rtol=1e-3, atol=1e-3)
+
+
+def _section_topology(pts, m, T, cuda):
+    """The host triangulation of the first m points, padded as Flame
+    uploads it: tris (T, 3), edges (E, 2), edge ranks, and the counts."""
+    tri = delaunay.triangulate(pts[:m])
+    edges = tri.edges.astype(np.int64)
+    d = pts[edges[:, 0]] - pts[edges[:, 1]]
+    ranks = topology.build_edge_ranks(edges, V, E,
+                                      tie=np.sqrt((d * d).sum(1)))
+    tris = np.zeros((T, 3), np.int64)
+    tris[:tri.triangles.shape[0]] = tri.triangles
+    full = np.zeros((E, 2), np.int64)
+    full[:edges.shape[0]] = edges
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    return dict(tris=t(tris), n_tris=int(tri.triangles.shape[0]),
+                edges=t(full), n_edges=int(edges.shape[0]),
+                edge_ranks=t(ranks))
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_post_delaunay_section_replays_equal_eager(cuda, deterministic):
+    """The post-Delaunay section (pipeline._post_delaunay_inner) replayed
+    from its CUDA graphs against the eager section, over four calls whose
+    n_tris and n_edges change, each side carrying its own graph state:
+    graph state, vertex idepths, normals, validity, map, scale and
+    coverage bit for bit; K1 and K2 launched once a call on both sides;
+    one capture and a replay per call for each of the four graphs.
+    The normals sum each vertex's triangles with index_add_, which on the
+    card adds in the order its atomics land unless torch's deterministic
+    algorithms are on: so they are compared with those on, and left out
+    without (the eager section then differs from itself there)."""
+    from flame_tpu_torch import Params, SolverParams
+    from flame_tpu_torch.core import pipeline, step_graph
+    params = Params(solver=SolverParams(smoother="vertex",
+                                        max_vertex_degree=D))
+    K = torch.tensor([[250.0, 0, W / 2], [0, 250.0, H / 2], [0, 0, 1]],
+                     device=cuda)
+    Kinv = torch.linalg.inv(K)
+    rng = np.random.default_rng(9)
+    pts = rng.uniform([4, 4], [W - 4, H - 4], (V, 2)).astype(np.float32)
+    q = torch.tensor([1.0, 0, 0, 0], device=cuda)
+    steps = step_graph.Steps(step_graph.cuda_capture)
+    state = {side: (nltgv2.empty(V, E, D, cuda), torch.ones((), device=cuda))
+             for side in ("eager", "graphed")}
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=cuda)
+    was = torch.are_deterministic_algorithms_enabled()
+    # warn_only: cuBLAS, whose workspace this process may have set up
+    # already, warns instead of raising.
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        for k, m in enumerate((700, 850, 600, 1000)):
+            xy = pts + np.float32(0.5 * k)
+            member = torch.arange(V, device=cuda) < m
+            curr = pipeline.CurrFeatures(
+                xy=f(xy), idepth=f(rng.uniform(0.1, 0.3, V)),
+                var=f(rng.uniform(1e-4, 1e-3, V)), valid=member)
+            topo = _section_topology(xy, m, 2 * V, cuda)
+            outs = {}
+            for side, current in (("eager", None), ("graphed", steps)):
+                graph, scale = state[side]
+                _kernels.reset_launches()
+                with step_graph.active(current):
+                    outs[side] = pipeline._post_delaunay_inner(
+                        params, K, Kinv, graph, member, curr,
+                        (q, f([0.01 * k, 0, 0])),
+                        (q, f([0.01 * (k + 1), 0, 0])), scale, W, H, **topo)
+                torch.cuda.synchronize()
+                assert _kernels.LAUNCHES["nltgv2_smoother"] == 1, (side, k)
+                assert _kernels.LAUNCHES["raster_mesh"] == 1, (side, k)
+                state[side] = (outs[side][0], outs[side][5])
+            want, got = (step_graph._leaves(
+                o if deterministic else o[:2] + o[3:])
+                for o in (outs["eager"], outs["graphed"]))
+            assert len(got) == len(want)
+            for a, b in zip(want, got):
+                torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                           equal_nan=True)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert steps.counts == {f"{kind}_graph_{c}": n
+                            for kind in ("post", "smooth", "mesh", "raster")
+                            for c, n in (("captures", 1), ("replays", 4))}

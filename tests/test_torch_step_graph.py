@@ -1,5 +1,5 @@
-"""The tracking step's graph runner (flame_tpu_torch/core/step_graph.py)
-on the CPU.
+"""The graph runner (flame_tpu_torch/core/step_graph.py) of the tracking
+step and the post-Delaunay section, on the CPU.
 
 A CPU stack takes the runner only through step_graph.attach, here with
 eager_capture: the body runs on the runner's own buffers (the copied-in
@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 import flame_tpu_torch  # noqa: E402
 from flame_tpu_torch.core import pipeline, step_graph  # noqa: E402
 from flame_tpu_torch.core import frame as frame_mod  # noqa: E402
+from flame_tpu_torch.ops import raster_kernel  # noqa: E402
+from flame_tpu_torch.optimize import smoother_kernel  # noqa: E402
 from flame_tpu_torch.params import (DetectionParams, Params,  # noqa: E402
                                     SolverParams)
 from flame_tpu_torch.utils import stats  # noqa: E402
@@ -70,7 +72,7 @@ def make_flame(async_topology=False, frame_batch=1, do_ba=False,
 
 
 def tensors(x):
-    return step_graph._leaves(x)
+    return _tensors_of(x)
 
 
 def assert_bits(a, b):
@@ -82,29 +84,55 @@ def assert_bits(a, b):
 
 
 class Recorder:
-    """Wraps pipeline functions by their module names, as the benchmark
-    does: keeps each call's outputs as returned and a copy of them
-    taken at once."""
+    """Wraps functions by their module names, as the benchmark does:
+    keeps each call's inputs and outputs as handed over, with copies of
+    them taken at once. points: (module, attribute) pairs; calls are
+    keyed by the attribute's name."""
 
-    def __init__(self, monkeypatch, names):
-        self.calls = {n: [] for n in names}
-        for n in names:
-            orig = getattr(pipeline, n)
+    def __init__(self, monkeypatch, points):
+        self.calls = {n: [] for _, n in points}
+        for mod, n in points:
+            orig = getattr(mod, n)
 
             def wrapper(*a, _orig=orig, _n=n, **kw):
+                args = (a, kw)
+                a_copy = [t.clone() for t in tensors(args)]
                 out = _orig(*a, **kw)
                 self.calls[_n].append(
-                    (out, [t.clone() for t in tensors(out)]))
+                    (out, [t.clone() for t in tensors(out)], args, a_copy))
                 return out
-            monkeypatch.setattr(pipeline, n, wrapper)
+            monkeypatch.setattr(mod, n, wrapper)
 
-    def check_unchanged(self, name):
-        """Every output of `name` still holds what it held when it was
-        returned: no later replay wrote over it."""
-        for out, copy in self.calls[name]:
-            for t, c in zip(tensors(out), copy):
+    def outputs(self, name):
+        return [c[0] for c in self.calls[name]]
+
+    def check_unchanged(self, name, inputs=False):
+        """Every output of `name` (and with inputs, every tensor handed
+        to it) still holds what it held then: no later replay wrote over
+        it."""
+        for out, copy, args, a_copy in self.calls[name]:
+            pairs = list(zip(tensors(out), copy))
+            if inputs:
+                pairs += list(zip(tensors(args), a_copy))
+            for t, c in pairs:
                 torch.testing.assert_close(t, c, rtol=0, atol=0,
                                            equal_nan=True)
+
+
+def _tensors_of(x):
+    """_leaves, through the dicts of keyword arguments too."""
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors_of(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors_of(v)]
+    return step_graph._leaves(x)
+
+
+def points(*names):
+    """(module, attribute) of the pipeline's functions by name, and of the
+    post-Delaunay section's two calls by name (smooth, rasterize)."""
+    mods = {"smooth": smoother_kernel, "rasterize": raster_kernel}
+    return [(mods.get(n, pipeline), n) for n in names]
 
 
 def run(monkeypatch, capture, n, pf_every, names, **kw):
@@ -114,7 +142,7 @@ def run(monkeypatch, capture, n, pf_every, names, **kw):
     if capture is not None:
         step_graph.attach(fl._stack, capture)
     with monkeypatch.context() as m:
-        rec = Recorder(m, names)
+        rec = Recorder(m, points(*names))
         fb = int(fl.params.solver.frame_batch)
         for i in range(n):
             fl.update(i * 0.1, i, pose(i), render(0.15 * i),
@@ -124,20 +152,42 @@ def run(monkeypatch, capture, n, pf_every, names, **kw):
     return fl, rec
 
 
-def counters(fl):
+def counters(fl, kinds=step_graph.KINDS):
     return {f"{k}_graph_{c}": int(fl.stats.stats(f"{k}_graph_{c}"))
-            for k in ("track", "detect") for c in step_graph.COUNTERS}
+            for k in kinds for c in step_graph.COUNTERS}
 
 
-def test_sync_track_step_graphed_matches_eager(monkeypatch):
+POST = ("_post_delaunay_inner", "smooth", "rasterize")
+SECTION = ("post", "smooth", "mesh", "raster")
+
+
+def section_counters(n_calls):
+    """The post-Delaunay section's counters after n_calls replayed calls:
+    one capture and a replay per call for each of its four graphs."""
+    return {f"{k}_graph_{c}": v for k in SECTION for c, v in (
+        ("captures", 1), ("replays", n_calls), ("eager", 0))}
+
+
+@pytest.fixture(scope="module")
+def sync_runs():
+    """16 synchronous frames, poseframes every 4th, eager and with the
+    runner (eager_capture), every call by name recorded."""
+    names = ("track_step", "_detect_and_insert") + POST
+    with pytest.MonkeyPatch.context() as mp:
+        ref, rec_e = run(mp, None, 16, 4, names)
+        fl, rec_g = run(mp, step_graph.eager_capture, 16, 4, names)
+    return ref, rec_e, fl, rec_g
+
+
+def test_sync_track_step_graphed_matches_eager(sync_runs):
     """12 tracked synchronous frames (16 frames, the first four
     bootstrap), poseframes every 4th: three of them detect."""
     names = ("track_step", "_detect_and_insert")
-    ref, rec_e = run(monkeypatch, None, 16, 4, names)
-    fl, rec_g = run(monkeypatch, step_graph.eager_capture, 16, 4, names)
-    steps_e, steps_g = rec_e.calls["track_step"], rec_g.calls["track_step"]
+    ref, rec_e, fl, rec_g = sync_runs
+    steps_e, steps_g = rec_e.outputs("track_step"), rec_g.outputs(
+        "track_step")
     assert len(steps_g) == len(steps_e) == 12
-    for (eo, _), (go, _) in zip(steps_e, steps_g):
+    for eo, go in zip(steps_e, steps_g):
         # feats, curr, member, stats, obs, packed
         assert_bits(eo, go)
     assert len(rec_g.calls["_detect_and_insert"]) == 3
@@ -146,7 +196,7 @@ def test_sync_track_step_graphed_matches_eager(monkeypatch):
     assert_bits(ref._last_stats_dev, fl._last_stats_dev)
     for name in names:
         rec_g.check_unchanged(name)
-    assert counters(fl) == dict(
+    assert counters(fl, ("track", "detect")) == dict(
         track_graph_captures=1, track_graph_replays=len(steps_g),
         track_graph_eager=0, detect_graph_captures=1,
         detect_graph_replays=3, detect_graph_eager=0)
@@ -155,23 +205,63 @@ def test_sync_track_step_graphed_matches_eager(monkeypatch):
     assert stats.latest_tracker() is fl.stats
 
 
-def test_batch_step_graphed_matches_eager(monkeypatch):
-    """One warm-up batch and two steps of B=8 under do_ba: the summed
-    stats, the packed transfer with the frames' matches, and each
-    frame's obs."""
-    names = ("batch_step", "track_project_sync")
+def _check_section(rec_e, rec_g, n_calls, normals=True):
+    """The section's calls by name, graphed against eager: each called
+    once per post-Delaunay step with equal inputs and outputs, bit for
+    bit (normals=False: but the normals, which index_add_'s atomics sum
+    in no fixed order on the card), and nothing handed over changed by a
+    later replay."""
+    for name in POST:
+        calls_e, calls_g = rec_e.calls[name], rec_g.calls[name]
+        assert len(calls_e) == len(calls_g) == n_calls, name
+        for (eo, _, ea, _), (go, _, ga, _) in zip(calls_e, calls_g):
+            assert_bits(_tensors_of(ea), _tensors_of(ga))
+            if name == "_post_delaunay_inner" and not normals:
+                eo, go = eo[:2] + eo[3:], go[:2] + go[3:]
+            assert_bits(eo, go)
+        rec_g.check_unchanged(name, inputs=True)
+
+
+def test_sync_post_delaunay_graphed_matches_eager(sync_runs):
+    """The 11 post-Delaunay steps of the synchronous run (the first
+    tracked frame has no triangulation yet): smooth and rasterize called
+    by name inside each, the graph state, map, validity and normals
+    bit-equal, and the section's counters: one capture and 11 replays a
+    graph."""
+    ref, rec_e, fl, rec_g = sync_runs
+    _check_section(rec_e, rec_g, 11)
+    assert_bits(ref._graph, fl._graph)
+    assert_bits([ref._idepthmap, ref._tri_validity, ref._vtx_normals,
+                 ref._coverage], [fl._idepthmap, fl._tri_validity,
+                                  fl._vtx_normals, fl._coverage])
+    assert counters(fl, SECTION) == section_counters(11)
+
+
+@pytest.fixture(scope="module")
+def batch_runs():
+    """One warm-up batch and two steps of B=8 under do_ba, eager and with
+    the runner."""
+    names = ("batch_step", "track_project_sync") + POST
     kw = dict(async_topology=True, frame_batch=8, do_ba=True)
-    ref, rec_e = run(monkeypatch, None, 24, 4, names, **kw)
-    fl, rec_g = run(monkeypatch, step_graph.eager_capture, 24, 4, names, **kw)
-    bs_e, bs_g = rec_e.calls["batch_step"], rec_g.calls["batch_step"]
+    with pytest.MonkeyPatch.context() as mp:
+        ref, rec_e = run(mp, None, 24, 4, names, **kw)
+        fl, rec_g = run(mp, step_graph.eager_capture, 24, 4, names, **kw)
+    return ref, rec_e, fl, rec_g
+
+
+def test_batch_step_graphed_matches_eager(batch_runs):
+    """The batched steps: the summed stats, the packed transfer with the
+    frames' matches, and each frame's obs."""
+    ref, rec_e, fl, rec_g = batch_runs
+    bs_e, bs_g = rec_e.outputs("batch_step"), rec_g.outputs("batch_step")
     assert len(bs_g) == len(bs_e) >= 2
-    for (eo, _), (go, _) in zip(bs_e, bs_g):
+    for eo, go in zip(bs_e, bs_g):
         assert_bits(eo[5], go[5])  # stats summed over the batch
         assert_bits(eo[6], go[6])  # packed, widened with the matches
         assert_bits(eo[2], go[2])  # feats'
-    tr_e, tr_g = (r.calls["track_project_sync"] for r in (rec_e, rec_g))
+    tr_e, tr_g = (r.outputs("track_project_sync") for r in (rec_e, rec_g))
     assert len(tr_g) == len(tr_e)
-    for (eo, _), (go, _) in zip(tr_e, tr_g):
+    for eo, go in zip(tr_e, tr_g):
         assert_bits(eo[4], go[4])  # obs
         assert_bits(eo[3], go[3])  # stats
     # (batch_step returns the stack, which later steps write in place.)
@@ -181,6 +271,21 @@ def test_batch_step_graphed_matches_eager(monkeypatch):
     assert c["track_graph_replays"] == len(tr_g)
     assert c["detect_graph_captures"] == 1
     assert c["track_graph_eager"] == c["detect_graph_eager"] == 0
+
+
+def test_batch_post_delaunay_graphed_matches_eager(batch_runs):
+    """The batched run's post-Delaunay section, once per batched step
+    and once in the single-frame warm-up: smooth and rasterize by name,
+    bit-equal to the eager path, nothing handed over changed later, a
+    replay per call."""
+    ref, rec_e, fl, rec_g = batch_runs
+    n = len(rec_e.calls["_post_delaunay_inner"])
+    assert n == len(rec_g.calls["batch_step"]) + 1
+    _check_section(rec_e, rec_g, n)
+    assert_bits(ref._graph, fl._graph)
+    assert_bits([ref._idepthmap, ref._vtx_normals, ref._tri_validity],
+                [fl._idepthmap, fl._vtx_normals, fl._tri_validity])
+    assert counters(fl, SECTION) == section_counters(n)
 
 
 @pytest.fixture(scope="module")
@@ -261,21 +366,30 @@ def cuda():
 def test_cuda_graphs_match_eager(cuda, monkeypatch, posture):
     """On the card: the captured graphs against the eager path (steps_for
     patched to None), bit for bit, with one capture per graph and a
-    replay per call."""
+    replay per call; the post-Delaunay section's calls by name, K1 and
+    K2 launched once per call."""
+    from flame_tpu_torch import _kernels
     kw = dict(device=cuda)
     if posture == "batched":
         kw.update(async_topology=True, frame_batch=8, do_ba=True)
     names = ("track_project_sync", "_detect_and_insert")
     with monkeypatch.context() as m:
         m.setattr(step_graph, "steps_for", lambda stack: None)
-        ref, rec_e = run(m, None, 24, 4, names, **kw)
-    fl, rec_g = run(monkeypatch, None, 24, 4, names, **kw)
+        ref, rec_e = run(m, None, 24, 4, names + POST, **kw)
+    _kernels.reset_launches()
+    fl, rec_g = run(monkeypatch, None, 24, 4, names + POST, **kw)
+    n_post = len(rec_g.calls["_post_delaunay_inner"])
+    assert n_post >= 1
+    assert _kernels.LAUNCHES["nltgv2_smoother"] == n_post
+    assert _kernels.LAUNCHES["raster_mesh"] == n_post
     for name in names:
         assert len(rec_g.calls[name]) == len(rec_e.calls[name]) >= 1
-        for (eo, _), (go, _) in zip(rec_e.calls[name], rec_g.calls[name]):
+        for eo, go in zip(rec_e.outputs(name), rec_g.outputs(name)):
             assert_bits(eo, go)
         rec_g.check_unchanged(name)
+    _check_section(rec_e, rec_g, n_post, normals=False)
     assert_bits(ref._feats, fl._feats)
+    assert_bits(ref._graph, fl._graph)
     np.testing.assert_array_equal(ref.get_inverse_depth_map(),
                                   fl.get_inverse_depth_map())
     assert counters(fl) == dict(
@@ -283,7 +397,7 @@ def test_cuda_graphs_match_eager(cuda, monkeypatch, posture):
         track_graph_replays=len(rec_g.calls["track_project_sync"]),
         track_graph_eager=0, detect_graph_captures=1,
         detect_graph_replays=len(rec_g.calls["_detect_and_insert"]),
-        detect_graph_eager=0)
+        detect_graph_eager=0, **section_counters(n_post))
     assert counters(ref) == dict.fromkeys(counters(ref), 0)
 
 

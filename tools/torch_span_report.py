@@ -24,9 +24,12 @@ and in the traced slice
                    the rest, ms a frame
   slice_ms_per_frame  the traced slice's wall ms a frame
   graphs           the tracker's CUDA-graph counters
-                   (track_graph_{captures,replays,eager}, detect_graph_*;
-                   core/step_graph.py) and the update() calls of the
-                   run: warm-up, window and slice
+                   (track_graph_{captures,replays,eager}, detect_graph_*,
+                   and the post-Delaunay section's post_graph_*,
+                   smooth_graph_*, mesh_graph_*, raster_graph_*;
+                   core/step_graph.py), the update() calls of the run
+                   (warm-up, window and slice), the post-Delaunay calls
+                   in the window and the step graphs captured inside it
   ba               with do_ba (ba/window.py): the window's ba_stage,
                    ba_solve (host) and ba_apply spans in ms a frame, the
                    solves staged in the window, the run's counters
@@ -137,8 +140,10 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
     from flame_tpu_torch.utils import stats
     # The run's last Flame, kept past the harness's del for the ATE, and
     # the host clock of each BA graph capture.
-    held, captures_ns = {}, []
+    # The host clock of each step graph's capture.
+    held, captures_ns, step_captures_ns = {}, [], []
     read, graphed = flame.Flame.get_inverse_depth_map, window._GraphedSolve
+    step_graph_cls = step_graph._Graph
 
     def read_and_keep(self, *a, **k):
         held["fl"] = self
@@ -148,14 +153,21 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
         def __init__(self, *a, **k):
             captures_ns.append(time.perf_counter_ns())
             super().__init__(*a, **k)
+
+    class StepCounted(step_graph_cls):
+        def __init__(self, *a, **k):
+            step_captures_ns.append(time.perf_counter_ns())
+            super().__init__(*a, **k)
     flame.Flame.get_inverse_depth_map = read_and_keep
     window._GraphedSolve = Counted
+    step_graph._Graph = StepCounted
     try:
         t_start = time.perf_counter()
         r = cell.run(cell_name, seed, seconds, True, t_start, device="cuda")
     finally:
         flame.Flame.get_inverse_depth_map = read
         window._GraphedSolve = graphed
+        step_graph._Graph = step_graph_cls
     x = r["_extra"]
     n = x["frames"]
     ctx = cell.Context(frames=n, reads=x["reads"], stages={}, trace=None,
@@ -164,6 +176,8 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
     traced = [s for s in stats.latest().spans() if s.profiled]
     slice_ = spans.Window(traced, set(spans.entries(traced)))
     upd = w.named("update")
+    first = min(s.start_ns for s in upd)
+    last = max(s.end_ns for s in upd)
     tri = w.named("triangulate")
     split = {}
     for t in tri:
@@ -189,10 +203,13 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
         idle_gaps=r["breakdown"]["idle_gaps"],
         graphs=dict(
             {f"{k}_graph_{c}": int(stats.latest_tracker().stats(
-                f"{k}_graph_{c}")) for k in ("track", "detect")
+                f"{k}_graph_{c}")) for k in step_graph.KINDS
              for c in step_graph.COUNTERS},
             updates=sum(1 for s in stats.latest().spans()
-                        if s.name == "update")),
+                        if s.name == "update"),
+            sync_graph_in_window=len(w.named("sync_graph")),
+            captures_in_window=sum(first <= t <= last
+                                   for t in step_captures_ns)),
         ba=(_ba(w, captures_ns, held["fl"], cell_name, seed)
             if held["fl"]._ba is not None else None),
         spans_in_ring=len(stats.latest()))
