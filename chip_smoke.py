@@ -189,7 +189,7 @@ Phases (any failure raises and the script exits non-zero):
      1e-4); and the share of float32 roots torch.sqrt rounds otherwise
      than numpy on the card.
  16. the tracking step and the post-Delaunay section from CUDA graphs
-     (core/step_graph.py): 40 frames of the synchronous posture
+     (flame_tpu_torch/step_graph.py): 40 frames of the synchronous posture
      (bench_params() with photo_error_num_pfs=30) and of the batched one
      (throughput_params() with deterministic=True; frame_batch 8),
      poseframes every 2nd frame, each run twice on phase 6's scene:
@@ -1196,12 +1196,13 @@ def pf_ate(fl, gt):
 
 def check_ba_graph(smi, p=None, label=""):
     """The BA window solve (ba.window._solve_packed at BAParams' default
-    L=1024, M=4096; p: other BAParams) captured as a CUDA graph
-    (_GraphedSolve) against its eager run on well-posed windows of 3 and
-    8 poses: the flat result within 1e-4 relative (the sums use atomics;
-    two eager runs are compared the same way), times of both; label: a
-    prefix of the printed lines."""
-    from flame_tpu_torch import BAParams
+    L=1024, M=4096; p: other BAParams) replayed from the graph runner
+    (window._solve_graphed, kind "ba") against its eager run on
+    well-posed windows of 3 and 8 poses: the flat result within 1e-4
+    relative (the sums use atomics; two eager runs are compared the same
+    way), one capture per window size, times of both; label: a prefix of
+    the printed lines."""
+    from flame_tpu_torch import BAParams, step_graph
     from flame_tpu_torch.ba import window
     dev = torch.device("cuda")
     p = BAParams() if p is None else p
@@ -1211,18 +1212,22 @@ def check_ba_graph(smi, p=None, label=""):
     Kinv = torch.linalg.inv(K)
     img = torch.as_tensor(np.random.default_rng(SEED).uniform(
         0, 255, (8, H + 10, W + 10)), dtype=torch.float32, device=dev)
+    steps = step_graph.Steps(step_graph.cuda_capture)
     for P in (3, 8):
         buf = torch.as_tensor(window.well_posed_window(P, L, M, Kn, P,
                                                        (40, 440)), device=dev)
 
         def solve(b):
             return window._solve_packed(p, K, Kinv, b, img, 5, 2, P, L, M)
+
+        def graphed(b):
+            return window._solve_graphed(steps, p, K, Kinv, b, img, 5, 2, P,
+                                         L, M)
         ref = solve(buf)
         t0 = time.perf_counter()
-        graphed = window._GraphedSolve(solve, buf)
+        out = graphed(buf)
         torch.cuda.synchronize()
         capture_ms = 1000 * (time.perf_counter() - t0)
-        out = graphed(buf).clone()
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5,
                                    msg=f"graphed BA solve, {P} poses")
         err = (out - ref).abs().max().item()
@@ -1233,7 +1238,11 @@ def check_ba_graph(smi, p=None, label=""):
               f"max|graph-eager| "
               f"{err:.3g} (rtol 1e-4); eager {eager_ms:.3f} ms, graph replay "
               f"{replay_ms:.3f} ms back to back, {card_ms:.3f} ms on the "
-              f"card; warm-up and capture {capture_ms:.1f} ms; on {smi}")
+              f"card; first call (warm-up, capture, replay) "
+              f"{capture_ms:.1f} ms; on {smi}")
+    if steps.counts.get("ba_graph_captures") != 2 \
+            or "ba_graph_eager" in steps.counts:
+        raise AssertionError(f"{label}BA graph counters {steps.counts}")
 
 
 def dataset_path(smi, label, n_frames, width, height, fx, poseframe_every,
@@ -1747,25 +1756,27 @@ def ba_windows(dev, P):
 
 
 def check_sharded_ba(smi, dev):
-    """11c: solve_window_sharded on make_mesh(MESH_PARTS) against the
-    single solve captured as a CUDA graph, rtol 1e-4 (phase 5c's); eager
-    and graphed times."""
+    """11c: solve_window_sharded on make_mesh(MESH_PARTS), replayed from
+    the graph runner (kind "ba_sharded", one capture per window size),
+    against the single eager solve, rtol 1e-4 (phase 5c's); eager and
+    graphed times."""
+    from flame_tpu_torch import step_graph
     from flame_tpu_torch.ba import schur, window
     from flame_tpu_torch.parallel import distributed_ba, sharding
     mesh = sharding.make_mesh(MESH_PARTS, dev)
+    steps = step_graph.Steps(step_graph.cuda_capture)
     for P in (3, 8):
         p, K, Kinv, problem = ba_windows(dev, P)
 
-        def single(*flat):
+        def single():
             return window._flat_result(*schur.solve_window(
-                p, flat[0], flat[1], problem._replace(q=flat[2], t=flat[3]),
-                n_fixed=2))
-        graphed = window._GraphedSolve(single, K, Kinv, problem.q, problem.t)
-        ref = graphed(K, Kinv, problem.q, problem.t).clone()
+                p, K, Kinv, problem, n_fixed=2))
+        ref = single()
 
         def sharded():
-            return distributed_ba.solve_window_sharded(p, K, Kinv, problem,
-                                                       mesh)
+            with step_graph.active(steps):
+                return distributed_ba.solve_window_sharded(p, K, Kinv,
+                                                           problem, mesh)
         t0 = time.perf_counter()
         out = window._flat_result(*sharded())
         torch.cuda.synchronize()
@@ -1778,15 +1789,17 @@ def check_sharded_ba(smi, dev):
             p, 2, mesh, K, Kinv, mprob, sw), 3)
         graph_ms = _cuda_ms(sharded, 10)
         card_ms = _device_ms(sharded, 10)
-        single_ms = _device_ms(lambda: graphed(K, Kinv, problem.q,
-                                               problem.t), 10)
+        single_ms = _device_ms(single, 10)
         print(f"solve_window_sharded, {P} poses, L={problem.lm_idepth.shape[0]}"
               f", M={problem.obs.u_ref.shape[0]}, {MESH_PARTS} partitions: "
-              f"max|sharded - single graphed| {err:.3g} (rtol 1e-4); eager "
+              f"max|sharded - single| {err:.3g} (rtol 1e-4); eager "
               f"{eager_ms:.3f} ms, graphed {graph_ms:.3f} ms back to back, "
-              f"{card_ms:.3f} ms on the card (the single graphed solve "
+              f"{card_ms:.3f} ms on the card (the single eager solve "
               f"{single_ms:.3f}); first call with capture {first_ms:.1f} ms; "
               f"on {smi}")
+    if steps.counts.get("ba_sharded_graph_captures") != 2 \
+            or "ba_sharded_graph_eager" in steps.counts:
+        raise AssertionError(f"11c: graph counters {steps.counts}")
 
 
 def sharded_ba_runs(root, meta, noisy_ate):
@@ -1838,8 +1851,10 @@ def check_sharded_flame_ba(smi, res):
               f"{ratio:.4f} of phase 9's noisy run without BA (< 0.8); "
               f"sharded solves {int(st.stats('ba_sharded_solves'))}, single "
               f"{int(st.stats('ba_single_solves'))}, applied "
-              f"{int(st.stats('ba_solves_applied'))}; {n_post} post-Delaunay "
-              f"steps, launches {got}")
+              f"{int(st.stats('ba_solves_applied'))}, graphs captured "
+              f"{int(st.stats('ba_sharded_graph_captures'))}, replayed "
+              f"{int(st.stats('ba_sharded_graph_replays'))}; {n_post} "
+              f"post-Delaunay steps, launches {got}")
         print(f"sharded BA ({sm}): median update "
               f"{np.median(r['frame_ms'][skip:]):.3f} ms (host wall, updates "
               f"{skip + 1}-{len(r['frame_ms'])}), median sharded solve "
@@ -1849,6 +1864,8 @@ def check_sharded_flame_ba(smi, res):
         if not (r["err"]["coverage"] > 0.35 and ratio < 0.8
                 and st.stats("ba_sharded_solves") >= 1
                 and st.stats("ba_single_solves") == 0 and n_post >= 1
+                and st.stats("ba_sharded_graph_replays")
+                == st.stats("ba_sharded_solves")
                 and got[k] == n_post and got[other] == 0
                 and got["raster_mesh"] == n_post):
             raise AssertionError(f"sharded BA ({sm}): gates failed")
@@ -2919,6 +2936,10 @@ def branch_phase(smi, ba_cells):
     return runs
 
 
+# The post-Delaunay section's graph kinds (step_graph.KINDS).
+SECTION_KINDS = ("post", "smooth", "mesh", "raster")
+
+
 def graph_run(smi, label, params, frames, K, Kinv, graphed):
     """One phase-16 run: the state after every map read, the host ms of
     update_idepths per frame and of sync_graph per call, the graph
@@ -2927,7 +2948,8 @@ def graph_run(smi, label, params, frames, K, Kinv, graphed):
     import contextlib
     from unittest import mock
     from flame_tpu_torch import _kernels
-    from flame_tpu_torch.core import pipeline, step_graph
+    from flame_tpu_torch import step_graph
+    from flame_tpu_torch.core import pipeline
     fl = make_flame(K, Kinv, params, False)
     B = int(params.solver.frame_batch)
     calls = {"track_project_sync": 0, "_detect_and_insert": 0,
@@ -2974,7 +2996,8 @@ def graph_run(smi, label, params, frames, K, Kinv, graphed):
     sync = [s.ms for s in spans if s.name == "sync_graph"][4:]
     dev = fl.stats.device_times_ms().get("update_idepths", [])[4:]
     counts = {f"{k}_graph_{c}": int(fl.stats.stats(f"{k}_graph_{c}"))
-              for k in step_graph.KINDS for c in step_graph.COUNTERS}
+              for k in ("track", "detect") + SECTION_KINDS
+              for c in step_graph.COUNTERS}
     print(f"16 {label} {'graphed' if graphed else 'eager'}: update_idepths "
           f"host {np.median(host):.3f} ms a frame (median of {len(host)} "
           f"calls), CUDA events {np.median(dev) / B:.3f} ms a frame; "
@@ -2989,7 +3012,6 @@ def graph_run(smi, label, params, frames, K, Kinv, graphed):
 def graph_phase(smi, n_frames=40):
     """Phase 16: each posture eager and replayed from CUDA graphs."""
     import dataclasses
-    from flame_tpu_torch.core import step_graph
     K, Kinv, frames = scene(n_frames)
     postures = (
         ("synchronous", bench_params().replace(photo_error_num_pfs=30)),
@@ -3015,7 +3037,7 @@ def graph_phase(smi, n_frames=40):
                     track_graph_eager=0, detect_graph_captures=1,
                     detect_graph_replays=calls["_detect_and_insert"],
                     detect_graph_eager=0)
-        want.update({f"{k}_graph_{c}": n for k in step_graph.KINDS[2:]
+        want.update({f"{k}_graph_{c}": n for k in SECTION_KINDS
                      for c, n in (("captures", 1), ("eager", 0), (
                          "replays", calls["_post_delaunay_inner"]))})
         if counts != want or calls["_detect_and_insert"] < 1:

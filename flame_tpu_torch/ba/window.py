@@ -9,9 +9,10 @@ and frame ids (feature slots are recycled). A solve packs its window
 problem into one int32 upload; on the device it is decoded, optionally
 re-matched in 2-D and weighted, and solved by Schur Gauss-Newton into one
 flat float32 result, which comes back through Flame's _AsyncFetch (a
-non-blocking copy and an event). On the card the solve is one CUDA graph
-per window size (_GraphedSolve), the counterpart of the JAX package's
-one jitted dispatch: launched op by op it is ~3,500 small launches.
+non-blocking copy and an event). On the card the solve replays a CUDA
+graph per window size (flame_tpu_torch/step_graph.py, kind "ba"), the
+counterpart of the JAX package's one jitted dispatch: launched op by op
+it is ~3,500 small launches.
 Poses and refined idepths apply one or more steps later: one pose
 scatter, and one idepth scatter guarded by identity (the slot must still
 hold the same feat_id mod 2^24 and the same anchor poseframe slot),
@@ -21,11 +22,13 @@ In Flame.stats a staged solve is the host span "ba_stage" (the window's
 build, the pack, the upload and the solve's launch), which holds the
 timed block "ba_solve" (the graph's replay, or the eager solve off the
 card: its CUDA events give the solve's device time); an apply is the
-host span "ba_apply"; COUNTERS are counted beside them.
+host span "ba_apply"; COUNTERS are counted beside them (the graph
+runner's ba_graph_captures among them).
 
 Under a mesh (ShardedFlame) every solve is decoded, re-matched and
 weighted the same way, solved with the observation-sharded assembly
-(parallel/distributed_ba.py) and applied at once, as in the JAX package
+(parallel/distributed_ba.py) while the stack's runner is current (kind
+"ba_sharded") and applied at once, as in the JAX package
 (flame_tpu/ba/window.py:560-597).
 """
 
@@ -34,11 +37,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flame_tpu_torch import step_graph
 from flame_tpu_torch.ba import rematch
 from flame_tpu_torch.ba import residuals as resid
 from flame_tpu_torch.ba import schur
 from flame_tpu_torch.core import frame as frame_mod
-from flame_tpu_torch.core import pipeline, step_graph
+from flame_tpu_torch.core import pipeline
 from flame_tpu_torch.parallel import sharding
 from flame_tpu_torch.params import BAParams
 from flame_tpu_torch.utils import evaluation
@@ -347,22 +351,19 @@ def _flat_result(q, t, lm, cost) -> torch.Tensor:
     return torch.cat([q.reshape(-1), t.reshape(-1), lm, cost.reshape(1)])
 
 
-class _GraphedSolve:
-    """solve(*bufs) captured as one CUDA graph (step_graph.cuda_capture):
-    replaying it copies bufs into the captured inputs and returns the
-    captured outputs, which the next replay overwrites (the stream orders
-    the fetch of one result before the next replay)."""
-
-    def __init__(self, solve, *bufs: torch.Tensor):
-        self.bufs = tuple(b.clone() for b in bufs)
-        self.out, self._replay = step_graph.cuda_capture(
-            lambda: solve(*self.bufs))
-
-    def __call__(self, *bufs: torch.Tensor):
-        for dst, src in zip(self.bufs, bufs):
-            dst.copy_(src)
-        self._replay()
-        return self.out
+def _solve_graphed(steps, p: BAParams, K, Kinv, buf: torch.Tensor, img_pad,
+                   pad: int, n_fixed: int, P: int, L: int,
+                   M: int) -> torch.Tensor:
+    """_solve_packed replayed from the graph runner `steps` (a frame
+    stack's step_graph.Steps) as kind "ba", one graph per window size;
+    eagerly where steps is None. The result is the caller's own."""
+    def body(ins, scalars):
+        return _solve_packed(p, K, Kinv, ins[0], img_pad, pad, n_fixed, P, L,
+                             M)
+    if steps is None:
+        return body([buf], ())
+    return steps.run("ba", body, [buf], (), p, (img_pad, K, Kinv),
+                     static=(pad, n_fixed, P, L, M))
 
 
 def _apply_idepths(feats: pipeline.FeatureState, trip: torch.Tensor,
@@ -408,10 +409,6 @@ class BundleAdjuster:
         self._snap = None  # latest decoded host snapshot
         self._snap_dirty = False  # new observations since the last solve?
         self._inflight = None  # (fetch, meta) of a staged solve result
-        # window size -> _GraphedSolve, on the card. A graph reads the
-        # Flame's frame stack (img_pad), which is allocated once and
-        # written in place, so it stays valid for the Flame's life.
-        self._graphs: Dict[int, _GraphedSolve] = {}
         self._new_pf_count = 0  # poseframes ingested since the last solve
         # fid -> (q, t): each poseframe's pose from the first snapshot that
         # holds it, before any refinement. The pose prior anchors here, not
@@ -545,12 +542,13 @@ class BundleAdjuster:
             buf = torch.as_tensor(_pack_problem(problem, slot_w),
                                   device=fl.device)
             img_pad = fl._stack.img_pad
+            steps = step_graph.steps_for(fl._stack)
             if self.mesh is not None:
                 # Under a mesh every solve is observation-sharded and
                 # counted.
                 from flame_tpu_torch.parallel import distributed_ba
                 fl.stats.add("ba_sharded_solves", 1)
-                with fl.stats.timed("ba_solve"):
+                with fl.stats.timed("ba_solve"), step_graph.active(steps):
                     prob, slots = _decode_packed(buf, P, L, M)
                     prob, sqrtW = _rematch_and_weigh(
                         p, self.K, self.Kinv, prob, slots, img_pad,
@@ -560,15 +558,10 @@ class BundleAdjuster:
                         n_fixed=n_fixed, sqrtW=sqrtW))
             else:
                 fl.stats.add("ba_single_solves", 1)
-
-                def solve(b):
-                    return _solve_packed(p, self.K, self.Kinv, b, img_pad,
-                                         fl.params.pad, n_fixed, P, L, M)
-                if buf.is_cuda and P not in self._graphs:
-                    fl.stats.add("ba_graph_captures", 1)
-                    self._graphs[P] = _GraphedSolve(solve, buf)
                 with fl.stats.timed("ba_solve"):
-                    res = self._graphs[P](buf) if buf.is_cuda else solve(buf)
+                    res = _solve_graphed(steps, p, self.K, self.Kinv, buf,
+                                         img_pad, fl.params.pad, n_fixed, P,
+                                         L, M)
         if self.mesh is not None:
             # Under a mesh every solve is applied at once, as in the JAX
             # package.

@@ -68,9 +68,9 @@ has its own "update" span inside that call's span. The worker thread's
 that started it; get_inverse_depth_map() is the span "map_read". A
 landed snapshot is recorded as "snapshot_flight", from its copy's start
 to its landing, and latency_percentiles() reads the update()->map
-latency from these spans. On the card tracking and poseframe detection
-replay CUDA graphs (core/step_graph.py); the counters
-track_graph_{captures,replays,eager} and detect_graph_* count them.
+latency from these spans. On the card every step_graph.KINDS section
+replays CUDA graphs (flame_tpu_torch/step_graph.py), counted as
+{kind}_graph_{captures,replays,eager}.
 
 Under ShardedFlame over a process group (parallel/orchestrator.py) the
 feature and graph state hold this rank's block only. The stages that
@@ -100,7 +100,8 @@ import numpy as np
 import torch
 
 from flame_tpu_torch.ba import window as ba_window
-from flame_tpu_torch.core import detection, keyframe, pipeline, step_graph
+from flame_tpu_torch import step_graph
+from flame_tpu_torch.core import detection, keyframe, pipeline
 from flame_tpu_torch.core import frame as frame_mod
 from flame_tpu_torch.geometry import epipolar
 from flame_tpu_torch.mesh import delaunay
@@ -665,12 +666,16 @@ class Flame:
         return self._done(True, frames=B)
 
     def _done(self, result: bool, frames: int = 1) -> bool:
-        for k, v in step_graph.counts(self._stack).items():
-            self.stats.set(k, v)
+        self._copy_graph_counts()
         ms = self.stats.elapsed_ms("update")
         if result and ms > 0:
             self.stats.ema("fps_max", frames * 1000.0 / ms)
         return result
+
+    def _copy_graph_counts(self) -> None:
+        """Copy the stack's graph counters (step_graph.counts) to stats."""
+        for k, v in step_graph.counts(self._stack).items():
+            self.stats.set(k, v)
 
     def _ba_step(self):
         """Advance the BA pipeline: apply a landed solve or stage a new
@@ -1246,6 +1251,7 @@ class Flame:
         raster_kernel.MAX_PER_TILE_BATCH a per-frame map lost triangles;
         the JAX package has no such key)."""
         self._flush_batch()
+        self._copy_graph_counts()  # quiesce() may have staged a solve
         s = self._last_stats_dev.cpu().numpy()
         self.stats.set("num_idepth_updates", int(s[pipeline.STAT_UPDATES]))
         return {

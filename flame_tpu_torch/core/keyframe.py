@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from flame_tpu_torch.core.step_graph import row
+from flame_tpu_torch.step_graph import row
 from flame_tpu_torch.geometry import se3
 
 SCORE_LOWEST = float(-torch.finfo(torch.float32).max)

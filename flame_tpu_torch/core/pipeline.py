@@ -18,7 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flame_tpu_torch.core import detection, keyframe, step_graph
+from flame_tpu_torch import step_graph
+from flame_tpu_torch.core import detection, keyframe
 from flame_tpu_torch.core import frame as frame_mod
 from flame_tpu_torch.core.frame import Frame, FrameStack
 from flame_tpu_torch.geometry import epipolar, se3
@@ -123,8 +124,8 @@ def track_project_sync(params: Params, K, Kinv, stack: FrameStack,
     """Track -> measure -> fuse -> project -> graph-membership gate over
     all feature slots. Returns (feats', curr, member (N,) bool, stats
     (N_STATS,) int32, obs). On a CUDA device the step replays a CUDA
-    graph of _track_project_sync (core/step_graph.py); the returned
-    tensors are the caller's own."""
+    graph of _track_project_sync (flame_tpu_torch/step_graph.py); the
+    returned tensors are the caller's own."""
     def eager():
         return _track_project_sync(params, K, Kinv, stack, feats, fnew,
                                    curr_pf_slot)
@@ -769,8 +770,8 @@ def _post_delaunay_inner(params: Params, K, Kinv, graph: nltgv2.GraphState,
     While the caller has made a step_graph.Steps current (a CUDA stack's,
     step_graph.active), the mesh is not over a process group and
     graph_scale is a device tensor, the torch ops between the calls made
-    by name replay CUDA graphs (core/step_graph.py): "post" up to
-    smoother_kernel.smooth, "smooth" and "raster" inside smooth and
+    by name replay CUDA graphs (flame_tpu_torch/step_graph.py): "post"
+    up to smoother_kernel.smooth, "smooth" and "raster" inside smooth and
     raster_kernel.rasterize, "mesh" from the one to the other; the
     coverage's four ops run eagerly. Every tensor handed to or returned
     from those calls is the caller's own. (A host float graph_scale runs

@@ -17,8 +17,7 @@ kernel runs or the call raises; there is no fallback.
 
 import torch
 
-from flame_tpu_torch import _kernels
-from flame_tpu_torch.core import step_graph
+from flame_tpu_torch import _kernels, step_graph
 from flame_tpu_torch.ops import rasterize as plain
 
 KERNEL = "raster_mesh"

@@ -30,8 +30,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from flame_tpu_torch import _kernels
-from flame_tpu_torch.core import step_graph
+from flame_tpu_torch import _kernels, step_graph
 from flame_tpu_torch.optimize import nltgv2, topology
 from flame_tpu_torch.params import RegularizerParams
 

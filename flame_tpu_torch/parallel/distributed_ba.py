@@ -9,21 +9,20 @@ card, then an all-reduce over the mesh's process group, if any), and the
 small reduced solve runs the same on every partition, through the one
 Gauss-Newton loop the single solve uses (schur.gn_solve).
 
-On a mesh of partitions of one card on the card, each window shape is
-one CUDA graph (ba/window._GraphedSolve), kept on the mesh: launched op
-by op a solve is some thousands of small launches. Over a process group
-the solve runs eagerly, since the all-reduces are NCCL's (or gloo's on
-the CPU).
+While a graph runner is current (flame_tpu_torch/step_graph.py; on the
+card BundleAdjuster makes the stack's current), each window shape
+replays one CUDA graph of kind "ba_sharded": op by op a solve is some
+thousands of small launches. Otherwise, and over a process group (the
+all-reduces are NCCL's, or gloo's), the solve runs eagerly.
 """
 
 import torch
 
+from flame_tpu_torch import step_graph
 from flame_tpu_torch.ba import residuals as resid
 from flame_tpu_torch.ba import schur
 from flame_tpu_torch.params import BAParams
 from flame_tpu_torch.parallel.sharding import Mesh, psum
-
-MAX_GRAPHS = 32  # captured window shapes kept per mesh
 
 
 def _obs_rows(obs: resid.BAObservations, sl: slice) -> resid.BAObservations:
@@ -82,29 +81,20 @@ def solve_window_sharded(params: BAParams, K, Kinv,
     split with them and is the identity where none is given. The same
     function as the single solve up to the order of the float sums.
     Returns (q', t', lm_idepth', final_cost)."""
-    from flame_tpu_torch.ba.window import _GraphedSolve
     problem, sqrtW = _materialize(problem, mesh.size, sqrtW)
     if problem.q.device != mesh.device:
         raise ValueError(f"solve_window_sharded: window on "
                          f"{problem.q.device}, mesh on {mesh.device}")
-    if mesh.group is not None or problem.q.device.type != "cuda":
+    steps = step_graph.current()
+    if mesh.group is not None or steps is None:
         return _solve(params, n_fixed, mesh, K, Kinv, problem, sqrtW)
 
-    flat = (K, Kinv, problem.q, problem.t, problem.lm_idepth,
-            problem.lm_valid, *problem.obs, problem.prior_q,
-            problem.prior_t, sqrtW)
-
-    def solve(K, Kinv, q, t, lm, lm_valid, a, o, l, u_ref, u_obs, valid,
-              prior_q, prior_t, sw):
+    def body(ins, scalars):
+        q, t, lm, lm_valid, a, o, l, u_ref, u_obs, valid, pq, pt, sw = ins
         return _solve(params, n_fixed, mesh, K, Kinv, schur.BAProblem(
             q, t, lm, lm_valid,
-            resid.BAObservations(a, o, l, u_ref, u_obs, valid),
-            prior_q, prior_t), sw)
-    key = (params, n_fixed) + tuple((tuple(a.shape), a.dtype) for a in flat)
-    graphed = mesh.graphs.get(key)
-    if graphed is None:
-        while len(mesh.graphs) >= MAX_GRAPHS:
-            del mesh.graphs[next(iter(mesh.graphs))]
-        graphed = mesh.graphs[key] = _GraphedSolve(solve, *flat)
-    # The graph's outputs are overwritten by its next replay.
-    return tuple(a.clone() for a in graphed(*flat))
+            resid.BAObservations(a, o, l, u_ref, u_obs, valid), pq, pt), sw)
+    flat = [problem.q, problem.t, problem.lm_idepth, problem.lm_valid,
+            *problem.obs, problem.prior_q, problem.prior_t, sqrtW]
+    return steps.run("ba_sharded", body, flat, (), params, (K, Kinv),
+                     static=(n_fixed, mesh))

@@ -37,7 +37,7 @@ compute stays on the card.
 """
 
 import dataclasses
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
@@ -68,14 +68,12 @@ MULTI_CARD = ("several cards run as a process group, one rank per card: "
 @dataclass(frozen=True)
 class Mesh:
     """A 1-D mesh: the device of each local partition, in axis order, and
-    optionally the process group whose ranks hold one partition each."""
+    optionally the process group whose ranks hold one partition each;
+    a value (the sharded BA solve's graphs are keyed on it)."""
 
     devices: tuple
     axis: str = AXIS
     group: Optional[Any] = None  # a torch.distributed ProcessGroup
-    # Captured CUDA graphs of the sharded BA solve, by window shape
-    # (parallel/distributed_ba.py).
-    graphs: dict = field(default_factory=dict, compare=False, repr=False)
 
     def __post_init__(self):
         devs = tuple(_canonical(d) for d in self.devices)

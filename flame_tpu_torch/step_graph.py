@@ -1,17 +1,21 @@
-"""The tracking step and the post-Delaunay section replayed from CUDA
-graphs.
+"""The port's one CUDA-graph runner: the tracking step, poseframe
+detection, the post-Delaunay section and the BA window solves replayed
+from CUDA graphs. It needs only torch and _kernels, so it sits beside
+them, below the kernel wrappers, core/, ba/ and parallel/ that call it.
 
 pipeline.track_project_sync launches about 1,800 small kernels a frame,
-poseframe detection (pipeline._detect_and_insert) about 730 and the
+poseframe detection (pipeline._detect_and_insert) about 730, the
 post-Delaunay section (pipeline._post_delaunay_inner) about 690 around
-its two hand-written kernels. Every shape is fixed by the capacities and
-none reads a device value on the host, so on a CUDA device each is
+its two hand-written kernels, and a BA window solve some thousands.
+Every shape is fixed by the capacities or the window size and none
+reads a device value on the host, so on a CUDA device each is
 captured once as a CUDA graph and replayed on every later call: the
 host then copies the call's inputs into the graph's own buffers (one
 multi-tensor copy per dtype), fills its device scalars, replays and
 copies the outputs out, instead of dispatching each kernel from Python.
 A replay runs the captured kernels in their order, so its results are
-the eager body's bit for bit.
+the eager body's bit for bit (up to the order of atomic sums: index_add_
+on the card, in the normals and the BA assembly).
 
 The post-Delaunay section is cut into graphs at the calls made by name
 (smoother_kernel.smooth, raster_kernel.rasterize), which stay calls
@@ -23,15 +27,22 @@ caller makes the stack's Steps current (active()); smooth and rasterize
 replay only while a Steps is current, so every other call of theirs
 runs eagerly.
 
+The BA window solve (ba/window.py) replays as kind "ba", a graph per
+window size. The observation-sharded solve (parallel/distributed_ba.py)
+follows smooth's rule as kind "ba_sharded": it replays while a Steps is
+current (BundleAdjuster makes the stack's current) and the mesh is not
+over a process group.
+
 A graph reads the frame stack, K and Kinv where they live (the stack is
 written in place; copying it would move every poseframe each frame).
 Steps holds the graphs of one stack, that is of one Flame, and is freed
-with it. A graph is keyed on what the code can observe: the Params
-object, the device, shapes and dtypes of the copied inputs, and the
-storage addresses (with shapes and dtypes) of the stack's tensors, K
-and Kinv; a call under another Params object or storage drops the
-stack's graphs of that kind and captures again, so no graph replays
-over freed storage.
+with it. A graph is keyed on what the code can observe: the Params (or
+BAParams) object, the device, shapes and dtypes of the copied inputs,
+the other host values the body reads (static), and the storage
+addresses (with shapes and dtypes) of the stack's tensors, K and Kinv;
+a call under another Params object or storage drops the stack's graphs
+of that kind and captures again, so no graph replays over freed
+storage.
 
 The capture step is a parameter: cuda_capture on the card;
 eager_capture runs the body on the graph's buffers without a graph, so
@@ -61,9 +72,10 @@ from flame_tpu_torch import _kernels
 # StatsTracker counters per kind: graphs captured, replays, and calls run
 # eagerly on a CUDA device (inside another capture).
 COUNTERS = ("captures", "replays", "eager")
-# The kinds: tracking, poseframe detection, and the post-Delaunay
-# section's four graphs.
-KINDS = ("track", "detect", "post", "smooth", "mesh", "raster")
+# The kinds: tracking, poseframe detection, the post-Delaunay section's
+# four graphs, and the single and the sharded BA solve.
+KINDS = ("track", "detect", "post", "smooth", "mesh", "raster", "ba",
+         "ba_sharded")
 
 
 def row(table: torch.Tensor, slot) -> torch.Tensor:
@@ -83,12 +95,12 @@ def full(n: int, value, dtype, device) -> torch.Tensor:
 
 
 def cuda_capture(fn: Callable):
-    """fn() captured as one CUDA graph, as ba/window.py captures its
-    solve: a warm-up run on a side stream first, then the capture with
-    the garbage collector off (a collection inside it would run a dropped
-    Flame's CUDA destructors, which invalidate the capture). The Delaunay
-    worker thread makes no CUDA calls; thread_local leaves other threads'
-    calls unchecked all the same. Returns (outputs, replay)."""
+    """fn() captured as one CUDA graph: a warm-up run on a side stream
+    first, then the capture with the garbage collector off (a collection
+    inside it would run a dropped Flame's CUDA destructors, which
+    invalidate the capture). The Delaunay worker thread makes no CUDA
+    calls; thread_local leaves other threads' calls unchecked all the
+    same. Returns (outputs, replay)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

@@ -13,10 +13,11 @@ tensors (copied to the host), the mesh outputs, the staged topology in
 whatever form the drain left it (host tuples; device copies are
 uploaded again on load), the host mirrors, the BA observation store,
 snapshot, solve cadence and input-pose anchors, and a JSON header of
-counters and bookkeeping. Not saved: CUDA graphs of the BA solve (built
-again at the first solve after load) and transfers in flight. Transfers
-queued on the instance that load() overwrites cannot be cancelled; they
-become zombies, counted in flight until they land, as after clear().
+counters and bookkeeping. Not saved: the CUDA graphs (the stack's
+runner captures them again at their first calls after load) and
+transfers in flight. Transfers queued on the instance that load()
+overwrites cannot be cancelled; they become zombies, counted in flight
+until they land, as after clear().
 
 A ShardedFlame over a process group (parallel/orchestrator.py) is saved
 and loaded by every rank: save gathers the ranks' blocks of the feature
@@ -228,8 +229,8 @@ def load(path: str, fl) -> None:
     fl._feats = fields("feats", fl._feats)
     fl._curr = fields("curr", fl._curr)
     fl._graph = fields("graph", fl._graph)
-    # The stack is written in place: the BA solve's CUDA graphs read it
-    # at its address.
+    # The stack is written in place: its CUDA graphs (tracking, the BA
+    # solve) read it at its address.
     for f in dataclasses.fields(fl._stack):
         dst = getattr(fl._stack, f.name)
         dst.copy_(tensor(f"stack.{f.name}", dst))

@@ -437,7 +437,10 @@ def _ba_buf(P, L, M, K, seed, device):
 
 
 def test_graphed_ba_solve_matches_eager(cuda):
-    from flame_tpu_torch import BAParams
+    """The BA window solve replayed from the graph runner (kind "ba")
+    against the eager solve: one capture, and the second call replays
+    new inputs."""
+    from flame_tpu_torch import BAParams, step_graph
     from flame_tpu_torch.ba import window
     p = BAParams(max_landmarks=64, max_obs=256)
     P, L, M = 4, p.max_landmarks, p.max_obs
@@ -445,16 +448,15 @@ def test_graphed_ba_solve_matches_eager(cuda):
     K = torch.tensor(Kn, dtype=torch.float32, device=cuda)
     Kinv = torch.linalg.inv(K)
     img = torch.rand(P, 130, 170, device=cuda) * 255
-
-    def solve(b):
-        return window._solve_packed(p, K, Kinv, b, img, 5, 2, P, L, M)
-    graphed = window._GraphedSolve(solve, _ba_buf(P, L, M, Kn, 0, cuda))
-    for seed in (0, 1):  # the second replays new inputs
+    steps = step_graph.Steps(step_graph.cuda_capture)
+    for seed in (0, 1):
         b = _ba_buf(P, L, M, Kn, seed, cuda)
-        got, want = graphed(b).clone(), solve(b)
+        got = window._solve_graphed(steps, p, K, Kinv, b, img, 5, 2, P, L, M)
+        want = window._solve_packed(p, K, Kinv, b, img, 5, 2, P, L, M)
         torch.testing.assert_close(got[:-1], want[:-1], rtol=1e-4,
                                    atol=1e-5)
         torch.testing.assert_close(got[-1], want[-1], rtol=1e-3, atol=1e-3)
+    assert steps.counts == dict(ba_graph_captures=1, ba_graph_replays=2)
 
 
 def _section_topology(pts, m, T, cuda):
@@ -488,7 +490,8 @@ def test_post_delaunay_section_replays_equal_eager(cuda, deterministic):
     algorithms are on: so they are compared with those on, and left out
     without (the eager section then differs from itself there)."""
     from flame_tpu_torch import Params, SolverParams
-    from flame_tpu_torch.core import pipeline, step_graph
+    from flame_tpu_torch import step_graph
+    from flame_tpu_torch.core import pipeline
     params = Params(solver=SolverParams(smoother="vertex",
                                         max_vertex_degree=D))
     K = torch.tensor([[250.0, 0, W / 2], [0, 250.0, H / 2], [0, 0, 1]],

@@ -1,5 +1,5 @@
-"""The graph runner (flame_tpu_torch/core/step_graph.py) of the tracking
-step and the post-Delaunay section, on the CPU.
+"""The graph runner (flame_tpu_torch/step_graph.py) of the tracking
+step, the post-Delaunay section and the BA solves, on the CPU.
 
 A CPU stack takes the runner only through step_graph.attach, here with
 eager_capture: the body runs on the runner's own buffers (the copied-in
@@ -19,12 +19,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import flame_tpu_torch  # noqa: E402
-from flame_tpu_torch.core import pipeline, step_graph  # noqa: E402
+from flame_tpu_torch import step_graph  # noqa: E402
+from flame_tpu_torch.ba import window  # noqa: E402
+from flame_tpu_torch.core import pipeline  # noqa: E402
 from flame_tpu_torch.core import frame as frame_mod  # noqa: E402
 from flame_tpu_torch.ops import raster_kernel  # noqa: E402
 from flame_tpu_torch.optimize import smoother_kernel  # noqa: E402
-from flame_tpu_torch.params import (DetectionParams, Params,  # noqa: E402
-                                    SolverParams)
+from flame_tpu_torch.params import (BAParams, DetectionParams,  # noqa: E402
+                                    Params, SolverParams)
+from flame_tpu_torch.parallel import distributed_ba, sharding  # noqa: E402
 from flame_tpu_torch.utils import stats  # noqa: E402
 
 FX = 100.0
@@ -271,6 +274,8 @@ def test_batch_step_graphed_matches_eager(batch_runs):
     assert c["track_graph_replays"] == len(tr_g)
     assert c["detect_graph_captures"] == 1
     assert c["track_graph_eager"] == c["detect_graph_eager"] == 0
+    # Every BA solve replays through the stack's runner.
+    assert c["ba_graph_replays"] == fl.stats.stats("ba_single_solves") >= 1
 
 
 def test_batch_post_delaunay_graphed_matches_eager(batch_runs):
@@ -309,14 +314,55 @@ def _state(tracked_state):
     return fl.params, fl.K, fl.Kinv, stack, fl._feats, frames
 
 
-@pytest.mark.parametrize("case", ["slots", "storage", "params", "outputs"])
+def _ba_solves(steps, stack, pad, kind):
+    """Kind "ba" (window._solve_graphed on the stack's img_pad) or
+    "ba_sharded" (solve_window_sharded over two partitions, the runner
+    current) on well-posed windows of 3 and 4 poses, two each: every
+    result equal to the eager call's, each window size captured once and
+    replayed at every call, and no result changed by a later replay."""
+    p = BAParams(max_landmarks=64, max_obs=256)
+    L, M = p.max_landmarks, p.max_obs
+    Kn = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]])
+    K = torch.tensor(Kn, dtype=torch.float32)
+    Kinv = torch.linalg.inv(K)
+    mesh = sharding.make_mesh(2, "cpu")
+
+    def solve(P, seed, current):
+        buf = torch.as_tensor(window.well_posed_window(
+            P, L, M, Kn, seed, (20, 100), n_invalid=9))
+        if kind == "ba":
+            return window._solve_graphed(current, p, K, Kinv, buf,
+                                         stack.img_pad, pad, 2, P, L, M)
+        problem, _ = window._decode_packed(buf, P, L, M)
+        with step_graph.active(current):
+            return distributed_ba.solve_window_sharded(p, K, Kinv, problem,
+                                                       mesh)
+    outs = []
+    for P in (3, 4):
+        for seed in (0, 1):
+            got = solve(P, seed, steps)
+            assert_bits(solve(P, seed, None), got)
+            outs.append((got, [t.clone() for t in tensors(got)]))
+    for got, copy in outs:
+        assert_bits(got, copy)
+    assert not torch.equal(tensors(outs[0][0])[0], tensors(outs[1][0])[0])
+    assert steps.counts == {f"{kind}_graph_captures": 2,
+                            f"{kind}_graph_replays": 4}
+
+
+@pytest.mark.parametrize("case", ["slots", "storage", "params", "outputs",
+                                  "ba", "ba_sharded"])
 def test_runner_keys_and_outputs(tracked_state, case):
     """slots: curr_pf_slot moving over the live slots replays one graph;
     storage: a stack tensor given new storage recaptures once; params:
     so does another Params object; outputs: call k's tensors are
-    unchanged after call k + 1."""
+    unchanged after call k + 1; ba and ba_sharded: the BA window solves
+    (_ba_solves)."""
     params, K, Kinv, stack, feats, frames = _state(tracked_state)
     steps = step_graph.attach(stack, step_graph.eager_capture)
+    if case.startswith("ba"):
+        _ba_solves(steps, stack, params.pad, case)
+        return
     slots = [s for s in range(stack.valid.shape[0]) if bool(stack.valid[s])]
     assert len(slots) >= 3
 
@@ -392,7 +438,7 @@ def test_cuda_graphs_match_eager(cuda, monkeypatch, posture):
     assert_bits(ref._graph, fl._graph)
     np.testing.assert_array_equal(ref.get_inverse_depth_map(),
                                   fl.get_inverse_depth_map())
-    assert counters(fl) == dict(
+    assert counters(fl, ("track", "detect") + SECTION) == dict(
         track_graph_captures=1,
         track_graph_replays=len(rec_g.calls["track_project_sync"]),
         track_graph_eager=0, detect_graph_captures=1,

@@ -24,12 +24,11 @@ and in the traced slice
                    the rest, ms a frame
   slice_ms_per_frame  the traced slice's wall ms a frame
   graphs           the tracker's CUDA-graph counters
-                   (track_graph_{captures,replays,eager}, detect_graph_*,
-                   and the post-Delaunay section's post_graph_*,
-                   smooth_graph_*, mesh_graph_*, raster_graph_*;
-                   core/step_graph.py), the update() calls of the run
-                   (warm-up, window and slice), the post-Delaunay calls
-                   in the window and the step graphs captured inside it
+                   ({kind}_graph_{captures,replays,eager} for every kind
+                   of flame_tpu_torch/step_graph.py, BA's included), the
+                   update() calls of the run (warm-up, window and
+                   slice), the post-Delaunay calls in the window and the
+                   graphs captured inside it
   ba               with do_ba (ba/window.py): the window's ba_stage,
                    ba_solve (host) and ba_apply spans in ms a frame, the
                    solves staged in the window, the run's counters
@@ -135,39 +134,30 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
         if p not in sys.path:
             sys.path.insert(0, p)
     from harness import cell, spans
-    from flame_tpu_torch.ba import window
-    from flame_tpu_torch.core import flame, step_graph
+    from flame_tpu_torch import step_graph
+    from flame_tpu_torch.core import flame
     from flame_tpu_torch.utils import stats
     # The run's last Flame, kept past the harness's del for the ATE, and
-    # the host clock of each BA graph capture.
-    # The host clock of each step graph's capture.
-    held, captures_ns, step_captures_ns = {}, [], []
-    read, graphed = flame.Flame.get_inverse_depth_map, window._GraphedSolve
-    step_graph_cls = step_graph._Graph
+    # the kind and host clock of each graph capture.
+    held, captures = {}, []
+    read, count = flame.Flame.get_inverse_depth_map, step_graph.Steps._count
 
     def read_and_keep(self, *a, **k):
         held["fl"] = self
         return read(self, *a, **k)
 
-    class Counted(graphed):
-        def __init__(self, *a, **k):
-            captures_ns.append(time.perf_counter_ns())
-            super().__init__(*a, **k)
-
-    class StepCounted(step_graph_cls):
-        def __init__(self, *a, **k):
-            step_captures_ns.append(time.perf_counter_ns())
-            super().__init__(*a, **k)
+    def count_and_clock(self, kind, what):
+        if what == "captures":
+            captures.append((kind, time.perf_counter_ns()))
+        count(self, kind, what)
     flame.Flame.get_inverse_depth_map = read_and_keep
-    window._GraphedSolve = Counted
-    step_graph._Graph = StepCounted
+    step_graph.Steps._count = count_and_clock
     try:
         t_start = time.perf_counter()
         r = cell.run(cell_name, seed, seconds, True, t_start, device="cuda")
     finally:
         flame.Flame.get_inverse_depth_map = read
-        window._GraphedSolve = graphed
-        step_graph._Graph = step_graph_cls
+        step_graph.Steps._count = count
     x = r["_extra"]
     n = x["frames"]
     ctx = cell.Context(frames=n, reads=x["reads"], stages={}, trace=None,
@@ -209,8 +199,9 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
                         if s.name == "update"),
             sync_graph_in_window=len(w.named("sync_graph")),
             captures_in_window=sum(first <= t <= last
-                                   for t in step_captures_ns)),
-        ba=(_ba(w, captures_ns, held["fl"], cell_name, seed)
+                                   for _, t in captures)),
+        ba=(_ba(w, [t for k, t in captures if k.startswith("ba")],
+                held["fl"], cell_name, seed)
             if held["fl"]._ba is not None else None),
         spans_in_ring=len(stats.latest()))
 
