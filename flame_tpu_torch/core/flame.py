@@ -958,6 +958,10 @@ class Flame:
             tri = delaunay.triangulate(xy)
         except ValueError:
             tri = None
+        if tri is not None:
+            # How near the jump lands: triangles a point's walk visited.
+            self.stats.set("delaunay_walk_steps",
+                           tri.walk_steps / xy.shape[0])
         if tri is None or tri.triangles.shape[0] == 0:
             # Degenerate (collinear) member set: keep the old topology.
             self.stats.add("triangulate_degenerate", 1)

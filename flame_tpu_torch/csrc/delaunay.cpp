@@ -1,6 +1,10 @@
 // The port's copy of flame_tpu/native/delaunay.cpp, built by
-// flame_tpu_torch/mesh/delaunay.py. Keep its code the same as there: the
-// port's topology is held to the JAX package's, triangle order included.
+// flame_tpu_torch/mesh/delaunay.py. Its output (the triangles, their
+// order, the neighbours and the edges) is held bit for bit to the JAX
+// package's core: keep the insertion order, the jitter, the predicates,
+// the cavity search, the fan linking and the compaction the same as there.
+// Point location differs (below), and so does the bookkeeping of an
+// insertion, which allocates nothing.
 //
 // Host-side 2D Delaunay triangulation for flame_tpu.
 //
@@ -23,13 +27,20 @@
 // arbitrarily thin hull slivers are kept — a finite super-triangle at any
 // distance silently eats them.
 //
-// Point location walks from the last-inserted triangle; insertion order is
-// a deterministic shuffle for expected O(n log n).
+// Insertion order is a deterministic shuffle for expected O(n log n).
+// Point location jumps, then walks: a coarse grid over the points' bounding
+// box keeps the last vertex inserted in each cell, and the walk starts from
+// a live triangle of the nearest such vertex to the point (the JAX package's
+// core walks from the last-inserted triangle, O(sqrt n) steps a point in a
+// shuffled order). Where the point lies strictly inside one triangle the
+// walk's end does not depend on its start; where it lies on an edge (an
+// orientation exactly 0) two triangles qualify, and the walk is made again
+// from the last-inserted triangle so that the JAX package's choice stands.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
-#include <unordered_map>
 #include <vector>
 
 namespace {
@@ -191,15 +202,20 @@ double incircle(const Ctx& c, int a, int b, int d, int p) {
 }
 
 // Locate a triangle containing point p by walking. Returns triangle id.
-int locate(const Ctx& c, int start, int p, int max_steps) {
+// Adds the triangles visited to *steps; *on_edge says whether p lies on an
+// edge of the returned triangle (an orientation exactly 0).
+int locate(const Ctx& c, int start, int p, int max_steps, int64_t* steps,
+           bool* on_edge) {
   int t = start;
   for (int step = 0; step < max_steps; ++step) {
+    ++*steps;
     const Tri& tri = c.tris[t];
-    bool moved = false;
+    bool moved = false, zero = false;
     for (int e = 0; e < 3; ++e) {
       int a = tri.v[(e + 1) % 3];
       int b = tri.v[(e + 2) % 3];
-      if (orient2d(c, a, b, p) < 0) {
+      double o = orient2d(c, a, b, p);
+      if (o < 0) {
         int nb = tri.n[e];
         if (nb < 0) return -1;  // walked off the hull: with a
                                 // super-triangle this means the
@@ -211,12 +227,77 @@ int locate(const Ctx& c, int start, int p, int max_steps) {
         moved = true;
         break;
       }
+      if (o == 0) zero = true;
     }
-    if (!moved) return t;  // containment verified (all orients >= 0)
+    if (!moved) {  // containment verified (all orients >= 0)
+      *on_edge = zero;
+      return t;
+    }
   }
   return -1;  // walk did not terminate: signal failure, never hand the
               // caller an arbitrary triangle to corrupt the cavity with
 }
+
+// The jump of point location: a grid of g x g cells over the points'
+// bounding box, each holding the last vertex inserted in it (-1: none).
+struct Grid {
+  int g = 1;
+  double x0 = 0, y0 = 0, fx = 0, fy = 0;  // origin; cells per unit
+  std::vector<int> last;
+  int filled = 0;
+
+  Grid(int n, double minx, double miny, double maxx, double maxy) {
+    g = std::min(128, std::max(1, static_cast<int>(std::lround(
+                                      0.5 * std::sqrt(static_cast<double>(n))))));
+    x0 = minx;
+    y0 = miny;
+    fx = maxx > minx ? g / (maxx - minx) : 0.0;
+    fy = maxy > miny ? g / (maxy - miny) : 0.0;
+    last.assign(static_cast<size_t>(g) * g, -1);
+  }
+  int cell(double v, double v0, double f) const {
+    double i = (v - v0) * f;  // clamped before the cast: NaN goes to 0
+    if (!(i >= 0)) return 0;
+    return i >= g ? g - 1 : static_cast<int>(i);
+  }
+  void insert(const Ctx& c, int v) {
+    int& slot = last[cell(c.py[v], y0, fy) * g + cell(c.px[v], x0, fx)];
+    filled += slot < 0;
+    slot = v;
+  }
+  // The vertex recorded nearest to p in p's cell or, failing that, in the
+  // nearest ring of cells around it that holds one; -1 while none is.
+  int nearest(const Ctx& c, int p) const {
+    if (filled == 0) return -1;
+    const int cx = cell(c.px[p], x0, fx), cy = cell(c.py[p], y0, fy);
+    for (int r = 0; r < g; ++r) {
+      int best = -1;
+      double best_d = 0;
+      auto visit = [&](int x, int y) {
+        if (x < 0 || y < 0 || x >= g || y >= g) return;
+        int v = last[y * g + x];
+        if (v < 0) return;
+        double dx = c.px[v] - c.px[p], dy = c.py[v] - c.py[p];
+        double d = dx * dx + dy * dy;
+        if (best < 0 || d < best_d) { best = v; best_d = d; }
+      };
+      if (r == 0) {
+        visit(cx, cy);
+      } else {
+        for (int x = cx - r; x <= cx + r; ++x) {
+          visit(x, cy - r);
+          visit(x, cy + r);
+        }
+        for (int y = cy - r + 1; y <= cy + r - 1; ++y) {
+          visit(cx - r, y);
+          visit(cx + r, y);
+        }
+      }
+      if (best >= 0) return best;
+    }
+    return -1;
+  }
+};
 
 // Deterministic pseudo-random permutation (xorshift), reproducible builds.
 uint64_t xs64(uint64_t& s) {
@@ -234,12 +315,15 @@ extern "C" {
 //   tri_out:   capacity >= 3 * (2*n + 8)
 //   neigh_out: capacity >= 3 * (2*n + 8), -1 where no neighbor
 //   edge_out:  capacity >= 2 * (3*n + 8)
-int delaunay_triangulate(const float* pts, int n,
-                         int* tri_out, int* n_tri_out,
-                         int* edge_out, int* n_edge_out,
-                         int* neigh_out) {
+//   walk_steps: if not null, receives the triangles the point-location
+//               walks visited over all insertions
+int delaunay_triangulate_ex(const float* pts, int n,
+                            int* tri_out, int* n_tri_out,
+                            int* edge_out, int* n_edge_out,
+                            int* neigh_out, int64_t* walk_steps) {
   *n_tri_out = 0;
   *n_edge_out = 0;
+  if (walk_steps) *walk_steps = 0;
   if (n < 3) return 1;
 
   Ctx c;
@@ -280,7 +364,8 @@ int delaunay_triangulate(const float* pts, int n,
   c.px[s1] = c.py[s1] = 0.0;
   c.px[s2] = c.py[s2] = 0.0;
 
-  c.tris.reserve(2 * n + 16);
+  // About 6 triangles are made per insertion of a shuffled order.
+  c.tris.reserve(7 * static_cast<size_t>(n) + 16);
   c.tris.push_back({{s0, s1, s2}, {-1, -1, -1}, true});
   c.last_alive = 0;
 
@@ -298,17 +383,30 @@ int delaunay_triangulate(const float* pts, int n,
   std::vector<int> stack;
   // Boundary edges of the cavity: (va, vb, outer neighbor id).
   struct BEdge { int a, b, outer; };
-  std::vector<BEdge> boundary;
+  std::vector<BEdge> boundary, bfinal;
+  // The fan's triangle by its boundary edge's start / end vertex (-1:
+  // none), reset entry by entry after each insertion.
+  std::vector<int> by_a(n + 3, -1), by_b(n + 3, -1);
+  // A live triangle incident to each vertex (-1: not inserted yet).
+  std::vector<int> vtri(n + 3, -1);
+  Grid grid(n, minx, miny, maxx, maxy);
+  int64_t steps = 0;
 
   in_cavity.resize(c.tris.capacity() + 16, 0);
 
   for (int oi = 0; oi < n; ++oi) {
     int p = order[oi];
-    int t0 = locate(c, c.last_alive, p, 4 * (int)c.tris.size() + 64);
+    const int max_steps = 4 * (int)c.tris.size() + 64;
+    int t0 = -1;
+    bool on_edge = false;
+    int v = grid.nearest(c, p);
+    if (v >= 0 && vtri[v] >= 0 && c.tris[vtri[v]].alive)
+      t0 = locate(c, vtri[v], p, max_steps, &steps, &on_edge);
+    if (t0 < 0 || on_edge)  // no jump, a failed walk, or a tie
+      t0 = locate(c, c.last_alive, p, max_steps, &steps, &on_edge);
     if (t0 < 0) return 2;  // point location failed (inconsistent
                            // predicates / non-terminating walk): report
-                           // instead of corrupting the triangulation —
-                           // the Python wrapper falls back to scipy
+                           // instead of corrupting the triangulation
 
     // Grow cavity: BFS over neighbors whose circumcircle contains p.
     cavity.clear();
@@ -341,8 +439,7 @@ int delaunay_triangulate(const float* pts, int n,
     }
     // NOTE: boundary edges collected above may include edges whose outer
     // neighbor later joined the cavity (stack order). Filter them now.
-    std::vector<BEdge> bfinal;
-    bfinal.reserve(boundary.size());
+    bfinal.clear();
     for (const BEdge& be : boundary) {
       if (be.outer < 0 || !in_cavity[be.outer]) bfinal.push_back(be);
     }
@@ -366,6 +463,7 @@ int delaunay_triangulate(const float* pts, int n,
       nt.n[2] = -1;
       nt.alive = true;
       c.tris.push_back(nt);
+      vtri[p] = vtri[be.a] = vtri[be.b] = first_new + k;
       if (in_cavity.size() < c.tris.size())
         in_cavity.resize(c.tris.size() * 2, 0);
       // Fix outer neighbor's back-pointer: the slot of ot opposite the
@@ -385,28 +483,24 @@ int delaunay_triangulate(const float* pts, int n,
     }
     // Link the new fan triangles to each other: triangle k has edges
     // (p, a) and (p, b); neighbor across (p, b) is the triangle whose a ==
-    // this b, etc. A small map from boundary START vertex -> triangle
-    // makes this O(m) (the all-pairs scan was O(m^2) per insertion).
-    {
-      std::unordered_map<int, int> by_a, by_b;
-      by_a.reserve(2 * m);
-      by_b.reserve(2 * m);
-      for (int k = 0; k < m; ++k) {
-        by_a[bfinal[k].a] = k;
-        by_b[bfinal[k].b] = k;
-      }
-      for (int k = 0; k < m; ++k) {
-        const BEdge& bk = bfinal[k];
-        auto it = by_a.find(bk.b);  // triangle sharing edge (p, bk.b)
-        if (it != by_a.end() && it->second != k)
-          c.tris[first_new + k].n[1] = first_new + it->second;
-        auto jt = by_b.find(bk.a);  // triangle sharing edge (p, bk.a)
-        if (jt != by_b.end() && jt->second != k)
-          c.tris[first_new + k].n[2] = first_new + jt->second;
-      }
+    // this b, etc. Vertex-indexed tables from boundary START / END vertex
+    // -> triangle make this O(m); a later edge overwrites an earlier one.
+    for (int k = 0; k < m; ++k) {
+      by_a[bfinal[k].a] = k;
+      by_b[bfinal[k].b] = k;
     }
+    for (int k = 0; k < m; ++k) {
+      const BEdge& bk = bfinal[k];
+      int ka = by_a[bk.b];  // triangle sharing edge (p, bk.b)
+      if (ka >= 0 && ka != k) c.tris[first_new + k].n[1] = first_new + ka;
+      int kb = by_b[bk.a];  // triangle sharing edge (p, bk.a)
+      if (kb >= 0 && kb != k) c.tris[first_new + k].n[2] = first_new + kb;
+    }
+    for (int k = 0; k < m; ++k) by_a[bfinal[k].a] = by_b[bfinal[k].b] = -1;
     c.last_alive = first_new;
+    grid.insert(c, p);
   }
+  if (walk_steps) *walk_steps = steps;
 
   // Neighbor convention check: for triangle (v0=p, v1=a, v2=b):
   //   n[0] across (a, b)  [set to outer]
@@ -466,6 +560,14 @@ int delaunay_triangulate(const float* pts, int n,
   }
   *n_edge_out = ne;
   return 0;
+}
+
+int delaunay_triangulate(const float* pts, int n,
+                         int* tri_out, int* n_tri_out,
+                         int* edge_out, int* n_edge_out,
+                         int* neigh_out) {
+  return delaunay_triangulate_ex(pts, n, tri_out, n_tri_out, edge_out,
+                                 n_edge_out, neigh_out, nullptr);
 }
 
 }  // extern "C"

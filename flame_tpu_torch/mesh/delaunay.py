@@ -2,12 +2,15 @@
 
 A ctypes loader for the port's own copy of the JAX package's Delaunay
 core, csrc/delaunay.cpp (incremental Bowyer-Watson with symbolic
-jitter). The library is built with g++ into flame_tpu_torch/_build/,
-named by a hash of the source, and a failed build raises: there is
-deliberately no scipy fallback, whose triangle order differs and would
-break topology parity with the JAX package. Output contract: triangles
+jitter; its point location starts each walk from a grid of inserted
+vertices, and its output is the JAX package's bit for bit). The library
+is built with g++ into flame_tpu_torch/_build/, named by a hash of the
+source, and a failed build raises: there is deliberately no scipy
+fallback, whose triangle order differs and would break topology parity
+with the JAX package. Output contract: triangles
 (T, 3) with positive signed area in y-down pixel space, unique sorted
-edges (E, 2), neighbours (T, 3).
+edges (E, 2), neighbours (T, 3), and the triangles the point-location
+walks visited, summed over the points.
 """
 
 import ctypes
@@ -31,6 +34,7 @@ class Triangulation(NamedTuple):
     triangles: np.ndarray  # (T, 3) int32
     edges: np.ndarray  # (E, 2) int32, unique, sorted (lo, hi)
     neighbors: np.ndarray  # (T, 3) int32, -1 where none
+    walk_steps: int  # triangles the point-location walks visited, in all
 
 
 def _load() -> ctypes.CDLL:
@@ -53,9 +57,10 @@ def _load() -> ctypes.CDLL:
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.delaunay_triangulate.restype = ctypes.c_int
-        lib.delaunay_triangulate.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ip, ip, ip, ip, ip]
+        lib.delaunay_triangulate_ex.restype = ctypes.c_int
+        lib.delaunay_triangulate_ex.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ip, ip, ip, ip, ip,
+            ctypes.POINTER(ctypes.c_int64)]
         _lib = lib
         return lib
 
@@ -82,12 +87,13 @@ def triangulate(points: np.ndarray) -> Triangulation:
     edge_out = np.empty((3 * n + 8, 2), np.int32)
     n_tri = ctypes.c_int(0)
     n_edge = ctypes.c_int(0)
+    steps = ctypes.c_int64(0)
     ip = ctypes.POINTER(ctypes.c_int)
-    rc = lib.delaunay_triangulate(
+    rc = lib.delaunay_triangulate_ex(
         pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n,
         tri_out.ctypes.data_as(ip), ctypes.byref(n_tri),
         edge_out.ctypes.data_as(ip), ctypes.byref(n_edge),
-        neigh_out.ctypes.data_as(ip))
+        neigh_out.ctypes.data_as(ip), ctypes.byref(steps))
     if rc != 0:
         raise ValueError(f"delaunay_triangulate failed ({rc})")
     T, E = n_tri.value, n_edge.value
@@ -96,4 +102,5 @@ def triangulate(points: np.ndarray) -> Triangulation:
         e = e[np.lexsort((e[:, 1], e[:, 0]))]
     return Triangulation(triangles=tri_out[:T].copy(),
                          edges=np.ascontiguousarray(e),
-                         neighbors=neigh_out[:T].copy())
+                         neighbors=neigh_out[:T].copy(),
+                         walk_steps=steps.value)

@@ -554,16 +554,60 @@ def test_load_tracker_on_the_cpu():
     assert not any(k.startswith("device_") for k in out)
 
 
-@pytest.mark.parametrize("seed,n", [(0, 50), (1, 400), (2, 1500)])
-def test_delaunay_matches_jax_bit_for_bit(seed, n):
+def _parity_points(seed, n):
+    """Point sets of the Delaunay parity test, by seed: uniform (0, 1),
+    with a cocircular integer grid (2), on the 1/32-px grid the members
+    sit on at 640x480 (3) and 752x480 (4), clustered as detected
+    features are (5), and an integer grid with the midpoints of its
+    edges (6). The last lies 2^20 px from the origin with float32's step
+    there as the unit, where the core's jitter rounds away: later points
+    fall exactly on edges of earlier triangles, so the point location's
+    walk ends in one of two triangles, and the core must pick the JAX
+    package's."""
     rng = np.random.default_rng(seed)
+    if seed in (3, 4):
+        hi = (640.0, 480.0) if seed == 3 else (752.0, 480.0)
+        return (np.round(rng.uniform((0, 0), hi, (n, 2)) * 32) / 32
+                ).astype(np.float32)
+    if seed == 5:
+        centres = rng.uniform((0, 0), (640, 480), (40, 2))
+        pts = centres[rng.integers(0, 40, n)] + rng.normal(0, 6, (n, 2))
+        return (np.round(pts * 32) / 32).astype(np.float32)
+    if seed == 6:
+        k = 16
+        g = np.stack(np.meshgrid(np.arange(k), np.arange(k)), -1
+                     ).reshape(-1, 2).astype(np.float64)
+        mids = np.concatenate([g[g[:, 0] < k - 1] + (0.5, 0),
+                               g[g[:, 1] < k - 1] + (0, 0.5)])
+        pts = np.concatenate([g, mids])[:n]
+        off = 2.0 ** 20
+        step = float(np.spacing(np.float32(off)))
+        return (off + pts * 2 * step).astype(np.float32)
     pts = rng.uniform(0, 640, (n, 2)).astype(np.float32)
     if seed == 2:  # cocircular integer grid points, the hard ties
         pts[:400] = np.stack(np.meshgrid(np.arange(20), np.arange(20)),
                              -1).reshape(-1, 2) * 16.0
+    return pts
+
+
+@pytest.mark.parametrize("seed,n", [(0, 50), (1, 400), (2, 1500),
+                                    (3, 2048), (4, 4096), (5, 4000),
+                                    (6, 736)])
+def test_delaunay_matches_jax_bit_for_bit(seed, n):
+    pts = _parity_points(seed, n)
+    assert len(np.unique(pts, axis=0)) == n
     a, b = jdel.triangulate(pts), delaunay.triangulate(pts)
     for k in ("triangles", "edges", "neighbors"):
         np.testing.assert_array_equal(getattr(b, k), np.asarray(getattr(a, k)))
+
+
+def test_delaunay_walk_steps_per_point():
+    """The walk starts next to the point: on 4,096 random points of the
+    1/32-px grid it visits under 8 triangles a point (the JAX package's
+    walk from the last-inserted triangle visits about 50)."""
+    pts = _parity_points(3, 4096)
+    tri = delaunay.triangulate(pts)
+    assert 1.0 <= tri.walk_steps / len(pts) < 8.0
 
 
 def test_native_available_matches_jax():

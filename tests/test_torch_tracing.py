@@ -136,6 +136,15 @@ def test_one_update_root_span_per_call(sync_run):
     assert not {"upload", "snapshot_wait", "map_read"} & set(t)
 
 
+def test_delaunay_walk_steps_counter(sync_run):
+    """The synchronous path's Delaunay leaves the mean walk length of its
+    latest call in Flame.stats; failure_stats() keeps the JAX package's
+    keys."""
+    assert "delaunay_walk_steps" in sync_run.stats.snapshot()["stats"]
+    assert 1.0 <= sync_run.stats.stats("delaunay_walk_steps") < 8.0
+    assert "delaunay_walk_steps" not in sync_run.failure_stats()
+
+
 @pytest.mark.parametrize("run", ["sync_run", "async_run", "batch_run",
                                  "ba_run"])
 def test_children_nest_inside_parents(run, request):

@@ -22,6 +22,14 @@ and in the traced slice
   triangulate      the window's triangulate spans (synchronous path)
                    split into snapshot_wait, delaunay, topo_upload and
                    the rest, ms a frame
+  delaunay         the window's delaunay spans, ms a call, split into the
+                   core (the ctypes call into csrc/delaunay.cpp), the
+                   wrapper around it (mesh/delaunay.py: the buffers, the
+                   edge sort and the copies) and the numpy after it
+                   (dedup, edge codes, slot ranks); the members a call;
+                   and delaunay_walk_steps, the tracker's mean triangles a
+                   point's walk visited in the latest call (None where the
+                   program has no such counter)
   slice_ms_per_frame  the traced slice's wall ms a frame
   graphs           the tracker's CUDA-graph counters
                    ({kind}_graph_{captures,replays,eager} for every kind
@@ -40,9 +48,11 @@ and in the traced slice
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -128,6 +138,66 @@ def _ba(w, captures_ns, fl, cell_name, seed) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def timed_delaunay(calls: list):
+    """While open, each mesh.delaunay.triangulate call appends (thread,
+    start ns, end ns, ns inside the ctypes core, points) to calls."""
+    sys.path.insert(0, REPO)
+    from flame_tpu_torch.mesh import delaunay
+    lib, tri = delaunay._load(), delaunay.triangulate
+    cores = {name: getattr(lib, name) for name in (
+        "delaunay_triangulate_ex", "delaunay_triangulate")
+        if hasattr(lib, name)}
+    core_ns = {}
+
+    def timed_core(fn):
+        def call(*a):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*a)
+            finally:
+                core_ns[threading.get_ident()] = time.perf_counter_ns() - t0
+        return call
+
+    def timed_triangulate(points):
+        t0 = time.perf_counter_ns()
+        try:
+            return tri(points)
+        finally:
+            tid = threading.get_ident()
+            calls.append((tid, t0, time.perf_counter_ns(),
+                          core_ns.pop(tid, 0), len(points)))
+    delaunay.triangulate = timed_triangulate
+    for name, fn in cores.items():
+        setattr(lib, name, timed_core(fn))
+    try:
+        yield calls
+    finally:
+        delaunay.triangulate = tri
+        for name, fn in cores.items():
+            setattr(lib, name, fn)
+
+
+def _delaunay_split(spans_, calls, tracker) -> dict:
+    """The delaunay spans' ms a call, split by the triangulate calls made
+    inside them (same thread, inside the span's interval)."""
+    core = wrap = members = 0.0
+    for s in spans_:
+        for tid, t0, t1, c, n in calls:
+            if tid == s.thread and s.start_ns <= t0 and t1 <= s.end_ns:
+                core += c * 1e-6
+                wrap += (t1 - t0 - c) * 1e-6
+                members += n
+    n = len(spans_)
+    total = sum(s.ms for s in spans_)
+    walk = tracker.stats("delaunay_walk_steps") \
+        if "delaunay_walk_steps" in tracker.snapshot()["stats"] else None
+    return dict(calls=n, ms_per_call=total / n, core=core / n,
+                wrapper=wrap / n, numpy=(total - core - wrap) / n,
+                members_per_call=members / n,
+                delaunay_walk_steps=walk) if n else None
+
+
 def report(cell_name: str, seed: int, seconds: float) -> dict:
     bench = os.path.join(REPO, "benchmark")
     for p in (REPO, bench):
@@ -137,9 +207,9 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
     from flame_tpu_torch import step_graph
     from flame_tpu_torch.core import flame
     from flame_tpu_torch.utils import stats
-    # The run's last Flame, kept past the harness's del for the ATE, and
-    # the kind and host clock of each graph capture.
-    held, captures = {}, []
+    # The run's last Flame, kept past the harness's del for the ATE, the
+    # kind and host clock of each graph capture, and the Delaunay calls.
+    held, captures, tri_calls = {}, [], []
     read, count = flame.Flame.get_inverse_depth_map, step_graph.Steps._count
 
     def read_and_keep(self, *a, **k):
@@ -153,8 +223,10 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
     flame.Flame.get_inverse_depth_map = read_and_keep
     step_graph.Steps._count = count_and_clock
     try:
-        t_start = time.perf_counter()
-        r = cell.run(cell_name, seed, seconds, True, t_start, device="cuda")
+        with timed_delaunay(tri_calls):
+            t_start = time.perf_counter()
+            r = cell.run(cell_name, seed, seconds, True, t_start,
+                         device="cuda")
     finally:
         flame.Flame.get_inverse_depth_map = read
         step_graph.Steps._count = count
@@ -200,6 +272,8 @@ def report(cell_name: str, seed: int, seconds: float) -> dict:
             sync_graph_in_window=len(w.named("sync_graph")),
             captures_in_window=sum(first <= t <= last
                                    for _, t in captures)),
+        delaunay=_delaunay_split(w.named("delaunay"), tri_calls,
+                                 stats.latest_tracker()),
         ba=(_ba(w, [t for k, t in captures if k.startswith("ba")],
                 held["fl"], cell_name, seed)
             if held["fl"]._ba is not None else None),
